@@ -1,0 +1,513 @@
+#!/usr/bin/env python3
+"""Chip smoke of the PyTorch port (``src/repro_torch``) on one NVIDIA card.
+
+Run from the root of a checkout, with no arguments:
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line:
+
+1. device — ``nvidia-smi`` name and power limit, torch and CUDA versions.
+2. kernels — builds the CUDA kernels from ``src/repro_torch/kernels/csrc``
+   (nvcc, sm_90a), calls each wrapper on card tensors at the main path's
+   shapes and holds it against its plain PyTorch version on the same inputs
+   (hop_fused key bit-identical and ok equal, or_scatter words equal,
+   prune_scan keep mask equal), and times both with CUDA events.
+3. card vs CPU — builds an index on the card over the test corpus, copies
+   it to the CPU with ``FilteredANNEngine.from_arrays`` and runs the same
+   label / range / hybrid queries on both: routes, ids and integer counters
+   equal, distances allclose.
+4. full size — the main path at a deployment's data size: the index build
+   (PQ, Vamana passes, 2-hop lists, record store) and filtered search under
+   the speculative and post policies, with recall against brute force on
+   the card and every returned id checked by exact membership. Kernel
+   launch counts are zeroed just before the build and read just after the
+   last ``engine.search`` run; the diagnostics between them (graph stats,
+   greedy recall, the hop-loop profile) and each run's result checks are
+   left out of the counts.
+
+Then a ``kernels`` line (launches from phase 4, times from phase 2), the
+card's name and power limit as ``nvidia-smi`` prints them, and last the
+result line. It exits non-zero, printing no result, when there is no CUDA
+device or the port's sources are missing; any failed check raises.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import resource
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate
+F32_OPS_PER_S = 67e12           # H100 SXM float32 rate outside tensor cores
+FULL_N = 1_000_000
+MIN_N = 250_000
+TIME_LIMIT_S = 1200.0           # the smoke's limit, kernel builds included
+MARGIN_S = 150.0
+# seconds of the full-size phase per corpus row: 1M rows took ~400 s on an
+# NVIDIA H100 80GB HBM3 at 700 W (this script's full-size phase at N=1M);
+# scaled linearly
+FULL_S_PER_ROW = 420.0 / 1_000_000
+
+
+def emit(obj: dict) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int = 21, per_rep: int = 10) -> tuple[float, float]:
+    """(device_ms, call_ms) of one call of ``fn``, medians over ``reps``.
+
+    device_ms: the stream is first held busy (``torch.cuda._sleep``) so the
+    host enqueues ``per_rep`` calls ahead of the card, and CUDA events then
+    time them back to back — the card's time without host dispatch gaps.
+    call_ms: one call between CUDA events on an idle stream — what a caller
+    waits for, host dispatch included."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    dev_t, call_t = [], []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(50_000_000)
+        a.record()
+        for _ in range(per_rep):
+            fn()
+        b.record()
+        b.synchronize()
+        dev_t.append(a.elapsed_time(b) / per_rep)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        call_t.append(a.elapsed_time(b))
+    return (float(sorted(dev_t)[reps // 2]), float(sorted(call_t)[reps // 2]))
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def timed(kernel, plain, **row) -> dict:
+    """A kernels_vs_plain row: the kernel's and the plain version's times."""
+    row["ms"], row["call_ms"] = time_ms(kernel)
+    row["plain_ms"], row["plain_call_ms"] = time_ms(plain)
+    return row
+
+
+# ---------------------------------------------------------------------------
+# phase 2: each kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def kernel_phase(dev) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.kernels import build, ops, ref
+
+    t0 = time.perf_counter()
+    build.library()
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    out = {}
+
+    # hop_fused: B=64 queries, W·(R+R_d) = 512 candidates, M=16, K=256,
+    # F=1, QL=8, NR=4
+    b, c, m, k, f, ql, nr = 64, 512, 16, 256, 1, 8, 4
+    args = [
+        rng.integers(0, k, (b, c, m)).astype(np.uint8),
+        rng.integers(-2 ** 31, 2 ** 31, (b, c), dtype=np.int64)
+        .astype(np.int32),
+        rng.integers(0, 256, (b, c, f)).astype(np.int32),
+        rng.integers(0, 2, (b, c)).astype(bool),
+        (rng.normal(0, 1, (b, m, k)) ** 2).astype(np.float32),
+        np.stack([rng.integers(0, 2 ** 16, b), rng.integers(0, 3, b),
+                  rng.integers(0, 3, b), rng.integers(0, 2, b)],
+                 axis=1).astype(np.int32),
+        rng.integers(0, 2 ** 12, (b, ql)).astype(np.int32),
+        np.where(rng.random((b, nr)) < 0.5, 0, -1).astype(np.int32),
+        rng.integers(0, 128, (b, nr)).astype(np.int32),
+        rng.integers(128, 256, (b, nr)).astype(np.int32),
+    ]
+    targs = [torch.from_numpy(a).to(dev) for a in args]
+    key_k, ok_k = ops.hop_fused(*targs)
+    key_p, ok_p = ref.hop_fused_ref(*targs)
+    torch.cuda.synchronize()
+    assert torch.equal(ok_k, ok_p), "hop_fused: ok differs"
+    assert torch.equal(key_k.view(torch.int32), key_p.view(torch.int32)), \
+        "hop_fused: key not bit-identical"
+    nbytes = (b * c * m + b * c * 4 + b * c * f * 4 + b * c + b * m * k * 4
+              + b * (4 + ql + 3 * nr) * 4 + b * c * 4 + b * c)
+    bms, by = bound(nbytes, b * c * m)
+    out["hop_fused"] = timed(
+        lambda: ops.hop_fused(*targs), lambda: ref.hop_fused_ref(*targs),
+        shape=[b, c, m], max_abs_err=float((key_k - key_p).abs().max()),
+        bound_ms=bms, bound_by=by)
+
+    # or_scatter: the visited set at N=1M (64, 32768 words) with one hop's
+    # W·R = 32 slots, and the rare-list bitmap (64, ceil((N+1)/32)) with
+    # CAP = 2048 slots
+    for tag, (b, nw, c) in (("visited", (64, 32768, 32)),
+                            ("rare_list", (64, 31251, 2048))):
+        words = torch.from_numpy(rng.integers(
+            -2 ** 31, 2 ** 31, (b, nw), dtype=np.int64).astype(np.int32)
+        ).to(dev)
+        slots = torch.from_numpy(rng.integers(
+            -8, nw * 32 + 8, (b, c)).astype(np.int32)).to(dev)
+        got = ops.or_scatter(words, slots)
+        want = ref.or_scatter_ref(words, slots)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"or_scatter ({tag}) differs"
+        bms, by = bound(2 * b * nw * 4 + b * c * 4, b * c)
+        out[f"or_scatter/{tag}"] = timed(
+            lambda: ops.or_scatter(words, slots),
+            lambda: ref.or_scatter_ref(words, slots), shape=[b, nw, c],
+            max_abs_err=float((got.long() - want.long()).abs().max()),
+            bound_ms=bms, bound_by=by)
+
+    # prune_scan: B=1024 rows, C = R+8 (overflow), ell+R pass 1 and pass 2
+    for c in (40, 74, 96):
+        for a2 in (1.0, 1.44):
+            b = 1024
+            dp = np.sort(rng.normal(2, 1, (b, c)).astype(np.float32) ** 2, 1)
+            dp[:, c - c // 5:] = np.inf
+            dcc = rng.normal(0, 1, (b, c, c)).astype(np.float32) ** 2
+            dcc = (dcc + dcc.transpose(0, 2, 1)) / 2
+            dcc[:, np.arange(c), np.arange(c)] = 0.0
+            tdp, tdcc = (torch.from_numpy(x).to(dev) for x in (dp, dcc))
+            got = ops.prune_scan(tdp, tdcc, a2, 32)
+            want = ref.prune_scan_ref(tdp, tdcc, a2, 32)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), f"prune_scan C={c} a2={a2}"
+            kept = int(got.sum())
+            bms, by = bound(b * c * 4 + kept * c * 4 + b * c, 2 * kept * c)
+            out[f"prune_scan/C{c}/a2={a2}"] = timed(
+                lambda: ops.prune_scan(tdp, tdcc, a2, 32),
+                lambda: ref.prune_scan_ref(tdp, tdcc, a2, 32),
+                shape=[b, c], kept=kept,
+                max_abs_err=float((got.int() - want.int()).abs().max()),
+                bound_ms=bms, bound_by=by)
+    return {"build_s": build_s, "results": out}
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the card's path against the CPU's on the test corpus
+# ---------------------------------------------------------------------------
+
+def card_vs_cpu_phase(dev) -> dict:
+    import numpy as np
+    from repro_torch.core import engine as eng
+    from repro_torch.data.synth import make_filtered_dataset, make_selectors
+
+    ds = make_filtered_dataset(n=6000, d=32, n_queries=24, n_labels=60,
+                               seed=0)
+    cfg = eng.IndexConfig(r=24, r_dense=240, l_build=48, pq_m=8)
+    t0 = time.perf_counter()
+    gpu = eng.FilteredANNEngine.build(ds.vectors, ds.label_offsets,
+                                      ds.label_flat, ds.n_labels, ds.values,
+                                      cfg, device=dev)
+    build_s = time.perf_counter() - t0
+    arrays = gpu.arrays()
+    again = eng.FilteredANNEngine.build(ds.vectors, ds.label_offsets,
+                                        ds.label_flat, ds.n_labels, ds.values,
+                                        cfg, device=dev).arrays()
+    cpu = eng.FilteredANNEngine.from_arrays(arrays, cfg, device="cpu")
+    out = {"build_s": build_s, "workloads": {},
+           "rebuild_identical": all(np.array_equal(arrays[k], again[k])
+                                    for k in arrays)}
+    for wl in ("label", "range", "hybrid"):
+        res = []
+        for e in (gpu, cpu):
+            sels = make_selectors(ds, e, wl)
+            res.append(e.search(ds.queries, sels,
+                                eng.SearchConfig(policy="speculative")))
+        (ig, dg, sg), (ic, dc, sc) = res
+        assert sg.mechanism == sc.mechanism, f"{wl}: routes differ"
+        assert np.array_equal(ig, ic), f"{wl}: ids differ"
+        for f in ("io_pages", "hops", "explored", "dist_comps", "n_valid",
+                  "fp_explored"):
+            assert np.array_equal(getattr(sg, f), getattr(sc, f)), \
+                f"{wl}: {f} differs"
+        assert np.allclose(dg, dc, rtol=1e-6, atol=1e-6), f"{wl}: dists"
+        mix = {m: sg.mechanism.count(m) for m in sorted(set(sg.mechanism))}
+        out["workloads"][wl] = {"mechanisms": mix, "equal": True}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the main path at full size
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def uncounted():
+    """Leave the kernel launches made inside out of the counts."""
+    from repro_torch.kernels import ops
+    saved = dict(ops.LAUNCHES)
+    try:
+        yield
+    finally:
+        ops.LAUNCHES.update(saved)
+
+
+def _search_run(e, ds, sels, scfg, label, reachable, repeats: int = 5):
+    """One workload through ``engine.search``: a warm-up batch, then
+    ``repeats`` timed batches whose kernel launches it reports per batch."""
+    import torch
+    from repro_torch.kernels import ops
+
+    e.search(ds.queries, sels, scfg)                  # warm-up
+    before = dict(ops.LAUNCHES)
+    lat = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids, dists, stats = e.search(ds.queries, sels, scfg)
+        lat.append(time.perf_counter() - t0)
+    per_batch = {k: (ops.LAUNCHES[k] - before[k]) / repeats for k in before}
+    with uncounted():
+        row = _check_run(e, ds, sels, scfg, label, ids, stats, lat)
+    return {**row, "reachable_from_medoid": reachable,
+            "launches_per_batch": per_batch}
+
+
+def _check_run(e, ds, sels, scfg, label, ids, stats, lat) -> dict:
+    """Exact membership of every returned id, recall against brute force
+    on the card, and the run's line."""
+    import numpy as np
+    import torch
+    from repro_torch.core import engine as eng
+    from repro_torch.core.selectors import filter_to_device, stack_filters
+
+    cfg = e.config
+    s = e.store
+    rec = []
+    for i, sel in enumerate(sels):
+        qf = sel.plan(cfg.ql, cfg.cap, cfg.qr).qfilter
+        got = ids[i][ids[i] >= 0]
+        if got.size:
+            g = torch.from_numpy(got.astype(np.int64)).to(e.device)
+            ok = eng.is_member(filter_to_device(stack_filters([qf]),
+                                                e.device),
+                               s.rec_labels[g][None], s.rec_values[g][None])
+            assert bool(ok.all()), f"{label}: query {i} returned invalid ids"
+        gt = eng.brute_force_filtered(s.vectors, s.rec_labels, s.rec_values,
+                                      qf, ds.queries[i], scfg.k)
+        rec.append(eng.recall_at_k(ids[i], gt, scfg.k))
+    lat_ms = np.array(lat) * 1e3
+    return {
+        "run": label, "queries": int(ids.shape[0]),
+        "mechanisms": {m: stats.mechanism.count(m)
+                       for m in sorted(set(stats.mechanism))},
+        "qps": float(ids.shape[0] / np.mean(lat)),
+        "p50_batch_ms": float(np.percentile(lat_ms, 50)),
+        "p99_batch_ms": float(np.percentile(lat_ms, 99)),
+        "recall_at_10": float(np.mean(rec)),
+        "mean_hops": float(np.mean(stats.hops)),
+        "mean_io_pages": float(np.mean(stats.io_pages)),
+    }
+
+
+def hop_profile(e, ds, cfg, hops: int = 32) -> dict:
+    """The hop loop's layer metrics on the label workload in spec_in mode:
+    PyTorch operator calls in one hop (counted by a dispatch mode; the
+    CUDA kernels, launched through ctypes, come on top) and the wall time
+    per hop over one chunk of ``hops`` hops, synchronised."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.core import search
+    from repro_torch.core.selectors import stack_filters
+    from repro_torch.data.synth import make_selectors
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    sels = make_selectors(ds, e, "label")
+    qf = stack_filters([s.plan(cfg.ql, cfg.cap, cfg.qr).qfilter
+                        for s in sels])
+    sp = search.SearchParams(l_search=64, k=10, max_hops=512, l_valid=32,
+                             mode="spec_in")
+    ctx, st = search.init_search(e.store, e.codes, e.codebook, e.mem, qf,
+                                 ds.queries, e.medoid, sp)
+    mc = search._mc(e.mem, ctx, sp)
+    rec = search._issue(e.store, st)
+    with Count():
+        st1 = search._hop_step(e.store, e.codes, sp, ctx, mc, st, rec)
+        search._issue(e.store, st1)
+    torch.cuda.synchronize(e.device)
+    t0 = time.perf_counter()
+    search.run_hops(e.store, e.codes, e.mem, ctx, st, hops, sp)
+    torch.cuda.synchronize(e.device)
+    return {"torch_ops_per_hop": Count.n, "queries": len(sels),
+            "ms_per_hop": (time.perf_counter() - t0) / hops * 1e3}
+
+
+def full_phase(dev, n: int) -> dict:
+    """Build and serve at full size. The launch counts cover the build and
+    the ``engine.search`` runs and nothing else; they are returned under
+    ``launches``."""
+    import torch
+    from repro_torch.core import engine as eng
+    from repro_torch.core import graph, records
+    from repro_torch.data.synth import make_filtered_dataset, make_selectors
+    from repro_torch.kernels import ops
+
+    out = {"n": n, "d": 192, "n_labels": 1000}
+    t0 = time.perf_counter()
+    ds = make_filtered_dataset(n=n, d=192, n_queries=64, n_labels=1000,
+                               seed=0)
+    out["data_s"] = time.perf_counter() - t0
+    cfg = eng.IndexConfig()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    e = eng.FilteredANNEngine.build(ds.vectors, ds.label_offsets,
+                                    ds.label_flat, ds.n_labels, ds.values,
+                                    cfg, device=dev)
+    out["build_s"] = time.perf_counter() - t0
+    out["launches_build"] = dict(ops.LAUNCHES)
+    assert out["launches_build"]["prune_scan"] > 0, \
+        "the build launched no prune_scan"
+    out["build_stages_s"] = e.build_times
+    out["build_peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    out["host_peak_rss_gib"] = resource.getrusage(
+        resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+    with uncounted():
+        # the record store's first-occurrence mask, timed alone (it ran
+        # inside the record-store stage)
+        t0 = time.perf_counter()
+        records.candidate_first_mask(e.store.neighbors,
+                                     e.store.dense_neighbors)
+        torch.cuda.synchronize(dev)
+        out["cand_first_s"] = time.perf_counter() - t0
+        adj = e.store.neighbors.cpu().numpy()
+        out["graph"] = graph.graph_stats(adj)
+        reachable = graph.reachable_fraction(adj, e.medoid)
+        out["reachable_from_medoid"] = reachable
+        out["greedy_recall_at_10"] = graph.greedy_recall_at_k(
+            ds.vectors, adj, e.medoid, ds.queries, ell=64, device=dev)
+        emit({"phase": "full_build", **out})
+        emit({"phase": "hop_loop", **hop_profile(e, ds, cfg)})
+
+    runs = []
+    for wl, policy in (("label", "speculative"), ("label_and", "speculative"),
+                       ("range", "speculative"), ("hybrid", "speculative"),
+                       ("range", "post")):
+        run = _search_run(e, ds, make_selectors(ds, e, wl),
+                          eng.SearchConfig(policy=policy), f"{wl}/{policy}",
+                          reachable)
+        emit({"phase": "full_search", **run})
+        per_batch = run["launches_per_batch"]
+        assert per_batch["or_scatter"] > 0, \
+            f"{run['run']}: no or_scatter launch"
+        if policy == "speculative":
+            assert per_batch["hop_fused"] > 0, \
+                f"{run['run']}: no hop_fused launch"
+        runs.append(run)
+    out["launches"] = dict(ops.LAUNCHES)
+    out["searches"] = runs
+    return out
+
+
+# ---------------------------------------------------------------------------
+
+KERNELS = {
+    "hop_fused": ("hop_fused", "src/repro_torch/kernels/csrc/hop_fused.cu",
+                  "src/repro/kernels/hop_fused.py:142"),
+    "or_scatter": ("or_scatter/visited",
+                   "src/repro_torch/kernels/csrc/or_scatter.cu",
+                   "src/repro/kernels/or_scatter.py:61"),
+    "prune_scan": ("prune_scan/C96/a2=1.44",
+                   "src/repro_torch/kernels/csrc/prune_scan.cu",
+                   "src/repro/kernels/prune_scan.py:58"),
+}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--n", type=int, default=FULL_N,
+                    help="corpus size of the full-size phase")
+    args = ap.parse_args(argv)
+    t_start = time.perf_counter()
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
+        print("chip_smoke: the port's sources (src/repro_torch) are missing",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+
+    dev = torch.device("cuda", 0)
+    smi = nvidia_smi()
+    emit({"phase": "device", "nvidia_smi": smi,
+          "name": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count(), "torch": torch.__version__,
+          "cuda": torch.version.cuda})
+
+    kern = kernel_phase(dev)
+    emit({"phase": "kernels_vs_plain", **kern})
+
+    t0 = time.perf_counter()
+    small = card_vs_cpu_phase(dev)
+    emit({"phase": "card_vs_cpu", "seconds": time.perf_counter() - t0,
+          **small})
+
+    # halve N while the full-size phase would not fit in the time limit
+    n, cuts = args.n, []
+    elapsed = time.perf_counter() - t_start
+    while n > MIN_N and elapsed + FULL_S_PER_ROW * n > TIME_LIMIT_S - MARGIN_S:
+        cuts.append(f"N {n} -> {max(MIN_N, n // 2)} for the time limit")
+        n = max(MIN_N, n // 2)
+
+    t0 = time.perf_counter()
+    full = full_phase(dev, n)
+    full["seconds"] = time.perf_counter() - t0
+    launches = full["launches"]
+    for name, count in launches.items():
+        assert count > 0, f"{name} was not launched on the main path"
+
+    rows = []
+    for name, (key, source, replaces) in KERNELS.items():
+        r = kern["results"][key]
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": launches[name],
+                     "shape": r["shape"], "max_abs_err": r["max_abs_err"],
+                     "ms": r["ms"], "kernel_ms": r["ms"],
+                     "call_ms": r["call_ms"], "plain_ms": r["plain_ms"],
+                     "bound_ms": r["bound_ms"],
+                     "bound_by": r["bound_by"], "library_ms": None})
+    emit({"kernels": rows, "n_full": full["n"], "n_cuts": cuts,
+          "full_phase_s": full["seconds"],
+          "seconds": time.perf_counter() - t_start})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

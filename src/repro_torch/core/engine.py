@@ -1,0 +1,532 @@
+"""FilteredANNEngine — the end-to-end system (paper §4 Fig. 4), on PyTorch.
+
+Counterpart of ``repro.core.engine``. Query processing: per-query cost
+estimation routes to speculative pre-filtering, speculative in-filtering, or
+post-filtering; queries are grouped by (mechanism, pool-size bucket) and
+executed as batches; exact verification piggybacks on re-ranking everywhere.
+
+Baseline policies (paper §5.1 compared systems) are selectable:
+  * ``speculative`` — the paper's system (cost-model routing).
+  * ``basefilter``  — strict pre-filtering when selectivity < 1%, otherwise
+                      post-filtering.
+  * ``strict_in``   — Filtered-DiskANN-like strict in-filtering.
+  * ``strict_pre``  — Milvus-like always-pre-filtering.
+  * ``post``        — always post-filtering.
+
+Entry points run on the card unless the caller asks for the CPU:
+``device=None`` means ``cuda`` and raises where there is none.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core import cost_model, graph, pq as pq_mod, prefilter, \
+    search
+from repro_torch.core.labels import (LabelStore, build_label_store,
+                                     padded_vec_labels)
+from repro_torch.core.ranges import MultiRangeStore, build_multi_range_store
+from repro_torch.core.records import RecordStore, make_record_store
+from repro_torch.core.selectors import (InMemory, Selector, filter_to_device,
+                                        is_member, stack_filters)
+from repro_torch.device import resolve_device
+
+ROADMAP_LATER = "a later slice of the port (ROADMAP queue A, item {})"
+
+
+@dataclasses.dataclass(frozen=True)
+class IndexConfig:
+    r: int = 32               # Vamana out-degree
+    r_dense: int = 480        # 2-hop sample size (10-20x R, paper §4.1)
+    l_build: int = 64
+    alpha: float = 1.2
+    pq_m: int = 16            # PQ subquantizers
+    pq_iters: int = 8
+    max_labels: int = 16      # per-record label slots (exact verification)
+    ql: int = 8               # max labels per query
+    qr: int = 4               # range-predicate slots per query (NR)
+    cap: int = 2048           # merged rare-list capacity
+    seed: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class SearchConfig:
+    k: int = 10
+    l: int = 32               # base pool length L (recall knob)
+    beam_width: int = 1
+    max_hops: int = 512
+    alpha: float = 10.0       # cost-model IO weight
+    beta: float = 1.0
+    max_pool: int = 1024      # effective-L cap
+    l_rerank_delta: int = 16  # δ extra re-ranked vectors for pre-filtering
+    policy: str = "speculative"
+    hop_chunk: int = 32       # hops between straggler-compaction checks
+                              # (0 = single-shot search)
+    prefetch_depth: int = 2   # record slabs in flight per query (feeds the
+                              # modeled SSD latency; results are invariant)
+    fault_plan: object = None  # fault injection: not ported yet
+
+
+def apply_rung(scfg: SearchConfig,
+               rung: "cost_model.DegradeRung") -> SearchConfig:
+    """SearchConfig for one degrade-ladder rung (cost_model.DEGRADE_LADDER)."""
+    kw = dict(l=max(scfg.k, int(round(scfg.l * rung.l_scale))),
+              max_hops=max(8, int(round(scfg.max_hops
+                                        * rung.max_hops_scale))))
+    if rung.hop_chunk is not None:
+        kw["hop_chunk"] = rung.hop_chunk
+    if rung.prefetch_depth is not None:
+        kw["prefetch_depth"] = rung.prefetch_depth
+    return dataclasses.replace(scfg, **kw)
+
+
+def scan_rerank(scfg: SearchConfig,
+                rung: "cost_model.DegradeRung | None" = None) -> int:
+    """Re-rank budget of the gated full-scan path for a base config,
+    optionally as scaled by ``rung``."""
+    l = scfg.l if rung is None else max(scfg.k,
+                                        int(round(scfg.l * rung.l_scale)))
+    return int(min(scfg.max_pool, max(l + scfg.l_rerank_delta,
+                                      2 * scfg.k)))
+
+
+@dataclasses.dataclass
+class QueryStats:
+    mechanism: list
+    io_pages: np.ndarray
+    est_io_pages: np.ndarray
+    dist_comps: np.ndarray
+    est_compute: np.ndarray
+    hops: np.ndarray
+    fp_explored: np.ndarray
+    explored: np.ndarray
+    n_valid: np.ndarray
+    selectivity: np.ndarray
+    precision_in: np.ndarray
+    faults: np.ndarray        # injected fault events (0: no fault plan yet)
+    retries: np.ndarray
+    degraded: np.ndarray
+
+    @classmethod
+    def empty(cls) -> "QueryStats":
+        z = np.zeros(0, np.int64)
+        return cls(mechanism=[], io_pages=z, est_io_pages=np.zeros(0),
+                   dist_comps=z, est_compute=np.zeros(0), hops=z,
+                   fp_explored=z, explored=z, n_valid=z,
+                   selectivity=np.zeros(0), precision_in=np.zeros(0),
+                   faults=z, retries=z, degraded=z)
+
+
+class FilteredANNEngine:
+    def __init__(self, store: RecordStore, codes, codebook, mem: InMemory,
+                 label_store: LabelStore, range_store: MultiRangeStore,
+                 medoid: int, config: IndexConfig):
+        self.store = store
+        self.codes = codes
+        self.codebook = codebook
+        self.mem = mem
+        self.label_store = label_store
+        self.range_store = range_store
+        self.medoid = medoid
+        self.config = config
+        self.device = codes.device
+        self.n = label_store.n_vectors
+        self.calibration: cost_model.Calibration | None = None
+        self.build_times: dict = {}
+
+    def calibrate(self, source="BENCH_search.json") -> bool:
+        """Swap the router's per-hop compute constants for measured ones
+        (a BENCH_search.json payload, a path, or a Calibration). Returns
+        True when calibration data was found; ``calibrate(None)`` reverts."""
+        if source is None or isinstance(source, cost_model.Calibration):
+            self.calibration = source
+        elif isinstance(source, dict):
+            try:
+                self.calibration = cost_model.Calibration.from_bench(source)
+            except (KeyError, TypeError, ValueError):
+                self.calibration = None
+        else:
+            self.calibration = cost_model.load_calibration(source)
+        return self.calibration is not None
+
+    @property
+    def n_fields(self) -> int:
+        return self.range_store.n_fields
+
+    # ------------------------------------------------------------------
+    @classmethod
+    def build(cls, vectors: np.ndarray, label_offsets: np.ndarray,
+              label_flat: np.ndarray, n_labels: int, values: np.ndarray,
+              config: IndexConfig = IndexConfig(), shards: int = 0,
+              device=None) -> "FilteredANNEngine":
+        """Build the index on ``device`` (``None``: the card). ``values`` is
+        the numeric attribute matrix (n, F), or (n,) for one field.
+        ``build_times`` records the seconds of each stage."""
+        if shards > 1:
+            raise NotImplementedError(
+                "shards > 1: sharding on torch.distributed is "
+                + ROADMAP_LATER.format(7))
+        dev = resolve_device(device)
+        times: dict = {}
+        vectors = np.asarray(vectors, np.float32)
+        n, d = vectors.shape
+        if d % config.pq_m:
+            pad = config.pq_m - d % config.pq_m
+            vectors = np.pad(vectors, ((0, 0), (0, pad)))
+            d += pad
+
+        t0 = time.perf_counter()
+        vec_dev = torch.from_numpy(vectors).to(dev)
+        codebook = pq_mod.train_pq(vec_dev, config.pq_m,
+                                   iters=config.pq_iters, seed=config.seed)
+        codes = pq_mod.encode_pq(codebook, vec_dev)
+        graph.sync(dev)
+        times["pq_s"] = time.perf_counter() - t0
+
+        adj, medoid = graph.build_vamana_batched(
+            vectors, config.r, config.l_build, config.alpha,
+            seed=config.seed, device=dev, timings=times)
+        t0 = time.perf_counter()
+        dense = graph.densify_2hop(adj, config.r_dense, seed=config.seed + 1)
+        times["densify_s"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        eng = cls._assemble(vectors, adj, dense, codes, codebook, medoid,
+                            label_offsets, label_flat, n_labels, values,
+                            config, dev, blooms=None, bucket_codes=None)
+        graph.sync(dev)
+        times["records_s"] = time.perf_counter() - t0
+        eng.build_times = times
+        return eng
+
+    @classmethod
+    def _assemble(cls, vectors, adj, dense, codes, codebook, medoid,
+                  label_offsets, label_flat, n_labels, values, config, dev,
+                  blooms, bucket_codes, rec_labels=None, rec_values=None):
+        label_store = build_label_store(np.asarray(label_offsets, np.int64),
+                                        np.asarray(label_flat, np.int32),
+                                        int(n_labels))
+        range_store = build_multi_range_store(values)
+        if rec_labels is None:
+            rec_labels = padded_vec_labels(label_store, config.max_labels)
+        if rec_values is None:
+            rec_values = range_store.values
+        store = make_record_store(vectors, adj, dense, rec_labels, rec_values,
+                                  dev)
+        if blooms is None:
+            blooms = label_store.blooms
+        if bucket_codes is None:
+            bucket_codes = range_store.bucket_codes
+        blooms = np.asarray(blooms)
+        if blooms.dtype == np.uint32:
+            blooms = blooms.view(np.int32)
+        bucket_codes = np.asarray(bucket_codes, np.uint8)
+        if bucket_codes.ndim == 1:
+            bucket_codes = bucket_codes[:, None]
+        mem = InMemory(
+            blooms=torch.from_numpy(np.ascontiguousarray(blooms)).to(dev),
+            bucket_codes=torch.from_numpy(
+                np.ascontiguousarray(bucket_codes)).to(dev))
+        return cls(store, codes, codebook, mem, label_store, range_store,
+                   int(medoid), config)
+
+    @classmethod
+    def from_arrays(cls, arrays: dict, config: IndexConfig,
+                    device=None) -> "FilteredANNEngine":
+        """An engine over arrays built elsewhere (the JAX package's state as
+        numpy, or another port engine's :meth:`arrays`): ``vectors``,
+        ``neighbors``, ``dense_neighbors``, ``rec_labels``, ``rec_values``,
+        ``codes``, ``centroids``, ``medoid``, ``blooms``, ``bucket_codes``
+        and the raw ``label_offsets``/``label_flat``/``n_labels``/``values``
+        from which the host label and range stores are rebuilt."""
+        dev = resolve_device(device)
+        a = {k: (v.cpu().numpy() if torch.is_tensor(v) else np.array(v))
+             for k, v in arrays.items()}
+        vectors = np.asarray(a["vectors"], np.float32)
+        centroids = torch.from_numpy(
+            np.ascontiguousarray(a["centroids"], np.float32)).to(dev)
+        codebook = pq_mod.PQCodebook(centroids=centroids,
+                                     dim=int(vectors.shape[1]))
+        codes = torch.from_numpy(np.ascontiguousarray(a["codes"])).to(dev)
+        return cls._assemble(
+            vectors, a["neighbors"], a["dense_neighbors"], codes, codebook,
+            int(a["medoid"]), a["label_offsets"], a["label_flat"],
+            int(a["n_labels"]), a["values"], config, dev,
+            blooms=a["blooms"], bucket_codes=a["bucket_codes"],
+            rec_labels=a["rec_labels"], rec_values=a["rec_values"])
+
+    def arrays(self) -> dict:
+        """This engine's state as numpy arrays, in the layout
+        :meth:`from_arrays` takes."""
+        ls = self.label_store
+        s = self.store
+        return {
+            "vectors": s.vectors.cpu().numpy(),
+            "neighbors": s.neighbors.cpu().numpy(),
+            "dense_neighbors": s.dense_neighbors.cpu().numpy(),
+            "rec_labels": s.rec_labels.cpu().numpy(),
+            "rec_values": s.rec_values.cpu().numpy(),
+            "codes": self.codes.cpu().numpy(),
+            "centroids": self.codebook.centroids.cpu().numpy(),
+            "medoid": self.medoid,
+            "blooms": self.mem.blooms.cpu().numpy().view(np.uint32),
+            "bucket_codes": self.mem.bucket_codes.cpu().numpy(),
+            "label_offsets": ls.vec_offsets, "label_flat": ls.vec_labels,
+            "n_labels": ls.n_labels,
+            "values": self.range_store.values,
+        }
+
+    # ------------------------------------------------------------------
+    def shard(self, shards: int) -> "FilteredANNEngine":
+        if shards in (0, 1):
+            return self
+        raise NotImplementedError("shard(): sharding on torch.distributed "
+                                  "is " + ROADMAP_LATER.format(7))
+
+    def to_disk(self, path: str, storage_config=None):
+        raise NotImplementedError("to_disk: the disk tier is "
+                                  + ROADMAP_LATER.format(6))
+
+    def attach_disk_store(self, disk_store) -> None:
+        raise NotImplementedError("attach_disk_store: the disk tier is "
+                                  + ROADMAP_LATER.format(6))
+
+    def insert(self, vectors, label_offsets, label_flat, n_labels, values):
+        raise NotImplementedError("insert: IncrementalBuilder is "
+                                  + ROADMAP_LATER.format(3))
+
+    def approx_scan(self, queries, selectors, scfgs):
+        raise NotImplementedError("approx_scan: the gated full-corpus scan "
+                                  "(scan_all_gated) and serving are "
+                                  + ROADMAP_LATER.format(5))
+
+    # ------------------------------------------------------------------
+    def cost_inputs(self, plan, scfg: SearchConfig) -> cost_model.CostInputs:
+        """The router's CostInputs for one planned query."""
+        return cost_model.CostInputs(
+            n=self.n, l=scfg.l, s=plan.selectivity,
+            p_pre=plan.precision_pre, p_in=plan.precision_in,
+            x_pre=plan.pages_prescan, x_in=plan.pages_prefetch,
+            r=self.store.degree,
+            r_d=self.store.degree + self.store.dense_degree,
+            s_r=self.store.pages_std, s_d=self.store.pages_dense)
+
+    def estimate_cost(self, selector: Selector, scfg: SearchConfig = None,
+                      rung: "cost_model.DegradeRung | None" = None) -> float:
+        """Modeled service cost of one query (α·pages + β·comps) at the
+        routed mechanism, or at a degrade-ladder ``rung``."""
+        scfg = scfg or SearchConfig()
+        cfg = self.config
+        plan = selector.plan(cfg.ql, cfg.cap, cfg.qr)
+        c = self.cost_inputs(plan, scfg)
+        if rung is not None:
+            return cost_model.rung_cost(
+                c, rung, scfg.alpha, scfg.beta, scfg.max_pool,
+                base_prefetch=scfg.prefetch_depth,
+                rerank=scan_rerank(scfg, rung), calib=self.calibration)
+        route = self._route(plan, scfg)
+        return route.costs[route.mechanism].total(scfg.alpha, scfg.beta)
+
+    def _route(self, plan, scfg: SearchConfig) -> cost_model.Route:
+        c = self.cost_inputs(plan, scfg)
+        full = cost_model.route_query(c, scfg.alpha, scfg.beta,
+                                      scfg.max_pool, calib=self.calibration)
+        if plan.force_mech is not None:
+            mech = plan.force_mech
+        elif scfg.policy == "speculative":
+            return full
+        elif scfg.policy == "basefilter":
+            mech = "pre" if plan.selectivity < 0.01 else "post"
+        elif scfg.policy == "strict_in":
+            mech = "in"
+        elif scfg.policy == "strict_pre":
+            mech = "pre"
+        elif scfg.policy == "post":
+            mech = "post"
+        else:
+            raise ValueError(scfg.policy)
+        strict_in = scfg.policy == "strict_in" and mech == "in"
+        eff_l = full.effective_l if (mech == full.mechanism
+                                     and not strict_in) else \
+            cost_model.effective_l(mech, c, scfg.max_pool, strict=strict_in)
+        return cost_model.Route(mech, full.costs, eff_l)
+
+    # ------------------------------------------------------------------
+    def execute(self, queries: np.ndarray, selectors: Sequence[Selector],
+                scfgs: Sequence[SearchConfig]):
+        """The batched request path (paper §4 Fig. 4, generalized).
+
+        Each query carries its own ``SearchConfig``; queries are grouped by
+        (mechanism, pool-size bucket, config) and executed as coalesced
+        batches. Returns ``(ids_list, dists_list, QueryStats)``.
+        """
+        queries = np.asarray(queries, np.float32)
+        if queries.shape[1] != self.store.dim:
+            pad = self.store.dim - queries.shape[1]
+            queries = np.pad(queries, ((0, 0), (0, pad)))
+        B = queries.shape[0]
+        assert len(selectors) == B and len(scfgs) == B
+        for sc in scfgs:
+            if sc.fault_plan is not None:
+                raise NotImplementedError(
+                    "fault_plan: the fault ladder is "
+                    + ROADMAP_LATER.format(4))
+        cfg = self.config
+
+        plans = [s.plan(cfg.ql, cfg.cap, cfg.qr) for s in selectors]
+        routes = [self._route(p, sc) for p, sc in zip(plans, scfgs)]
+
+        out_ids: list = [None] * B
+        out_d: list = [None] * B
+        stats = QueryStats(
+            mechanism=[r.mechanism for r in routes],
+            io_pages=np.zeros(B, np.int64),
+            est_io_pages=np.array(
+                [r.costs[r.mechanism].io_pages for r in routes]),
+            dist_comps=np.zeros(B, np.int64),
+            est_compute=np.array(
+                [r.costs[r.mechanism].compute for r in routes]),
+            hops=np.zeros(B, np.int64),
+            fp_explored=np.zeros(B, np.int64),
+            explored=np.zeros(B, np.int64),
+            n_valid=np.zeros(B, np.int64),
+            selectivity=np.array([p.selectivity for p in plans]),
+            precision_in=np.array([p.precision_in for p in plans]),
+            faults=np.zeros(B, np.int64),
+            retries=np.zeros(B, np.int64),
+            degraded=np.zeros(B, np.int64),
+        )
+
+        groups: dict = {}
+        for i, r in enumerate(routes):
+            eff = 1 << max(5, math.ceil(math.log2(max(r.effective_l, 1))))
+            eff = min(eff, scfgs[i].max_pool)
+            groups.setdefault((r.mechanism, eff, scfgs[i]), []).append(i)
+
+        for (mech, eff_l, scfg), idxs in groups.items():
+            strict = scfg.policy in ("strict_in", "strict_pre", "basefilter")
+            sub_q = np.ascontiguousarray(queries[idxs])
+            sub_sel = [selectors[i] for i in idxs]
+            sub_qf = stack_filters([plans[i].qfilter for i in idxs])
+            if mech == "pre":
+                pp = prefilter.PrefilterParams(
+                    l_rerank=eff_l + scfg.l_rerank_delta, k=scfg.k)
+                res = prefilter.prefilter_search(
+                    self.store, self.codes, self.codebook, sub_sel, sub_qf,
+                    sub_q, pp, speculative=not strict)
+                ids = res.ids.cpu().numpy()
+                dists = res.dists.cpu().numpy()
+                io = res.io_pages.numpy()
+                dc = res.dist_comps.numpy()
+                nv = res.n_valid.numpy()
+                for j, i in enumerate(idxs):
+                    out_ids[i] = ids[j]
+                    out_d[i] = dists[j]
+                    stats.io_pages[i] = int(io[j])
+                    stats.dist_comps[i] = int(dc[j])
+                    stats.n_valid[i] = int(nv[j])
+                continue
+            mode = {"in": "strict_in" if scfg.policy == "strict_in"
+                    else "spec_in", "post": "post"}[mech]
+            sp = search.SearchParams(
+                l_search=eff_l, k=scfg.k, beam_width=scfg.beam_width,
+                max_hops=scfg.max_hops, mode=mode, l_valid=scfg.l,
+                prefetch_depth=scfg.prefetch_depth)
+            entries = None
+            seed_pages = np.zeros(len(idxs), np.int64)
+            if mode == "strict_in":
+                # strict in-filtering needs exactly-valid entry seeds; the
+                # attribute-index scan's pages are charged to the query
+                ents = np.full((len(idxs), 4), -1, np.int32)
+                for j in range(len(idxs)):
+                    seeds, pages = _strict_seed_ids(sub_sel[j], self.medoid,
+                                                    4)
+                    ents[j, :seeds.size] = seeds
+                    seed_pages[j] = pages
+                entries = ents
+            res = search.filtered_search_pipelined(
+                self.store, self.codes, self.codebook, self.mem, sub_qf,
+                sub_q, self.medoid, sp, entries=entries,
+                hop_chunk=scfg.hop_chunk)
+            r = {f: getattr(res, f).cpu().numpy()
+                 for f in search.SearchResult._fields}
+            prefetch = np.array([plans[i].pages_prefetch for i in idxs]) \
+                if mode == "spec_in" else np.zeros(len(idxs), np.int64)
+            for j, i in enumerate(idxs):
+                out_ids[i] = r["ids"][j]
+                out_d[i] = r["dists"][j]
+                stats.io_pages[i] = int(r["io_pages"][j]) + int(
+                    seed_pages[j]) + int(prefetch[j])
+                stats.dist_comps[i] = int(r["dist_comps"][j])
+                stats.hops[i] = int(r["hops"][j])
+                stats.fp_explored[i] = int(r["fp_explored"][j])
+                stats.explored[i] = int(r["explored"][j])
+                stats.n_valid[i] = int(r["n_valid"][j])
+                stats.faults[i] = int(r["faults"][j])
+                stats.retries[i] = int(r["retries"][j])
+                stats.degraded[i] = int(r["degraded"][j])
+        return out_ids, out_d, stats
+
+    # ------------------------------------------------------------------
+    def search(self, queries: np.ndarray, selectors: Sequence[Selector],
+               scfg: SearchConfig = SearchConfig()):
+        """Returns (ids (B,k), dists (B,k), QueryStats) — :meth:`execute`
+        with one shared SearchConfig."""
+        if len(selectors) == 0:
+            return (np.zeros((0, scfg.k), np.int32),
+                    np.zeros((0, scfg.k), np.float32), QueryStats.empty())
+        ids, dists, stats = self.execute(queries, selectors,
+                                         [scfg] * len(selectors))
+        return (np.stack(ids).astype(np.int32),
+                np.stack(dists).astype(np.float32), stats)
+
+
+def _strict_seed_ids(sel: Selector, medoid: int,
+                     e: int) -> tuple[np.ndarray, int]:
+    """Entry seeds for strict in-filtering: up to ``e`` exactly-valid
+    records, evenly spaced over the attribute index scan, plus the scan's
+    page count. Falls back to the medoid when the filter matches nothing."""
+    ids, pages = prefilter._strict_scan(sel)
+    ids = np.asarray(ids)
+    ids = ids[ids >= 0]
+    if ids.size == 0:
+        return np.array([medoid], np.int32), int(pages)
+    take = np.linspace(0, ids.size - 1, num=min(e, ids.size)).astype(np.int64)
+    return np.unique(ids[take]).astype(np.int32), int(pages)
+
+
+BRUTE_CHUNK = 1 << 18     # rows per ground-truth distance block
+
+
+def brute_force_filtered(vectors: torch.Tensor, rec_labels: torch.Tensor,
+                         rec_values: torch.Tensor, qfilter, query,
+                         k: int) -> np.ndarray:
+    """Exact ground truth on the tensors' device: the top-k valid ids by
+    full-precision distance. ``qfilter`` is one query's host QueryFilter."""
+    dev = vectors.device
+    qf = filter_to_device(stack_filters([qfilter]), dev)
+    q = torch.as_tensor(np.asarray(query, np.float32)).to(dev)
+    ds = []
+    for s in range(0, vectors.shape[0], BRUTE_CHUNK):
+        v = vectors[s:s + BRUTE_CHUNK]
+        ok = is_member(qf, rec_labels[None, s:s + BRUTE_CHUNK],
+                       rec_values[None, s:s + BRUTE_CHUNK])[0]
+        d = ((v - q[None, :]) ** 2).sum(1)
+        ds.append(torch.where(ok, d, float("inf")))
+    d = torch.cat(ds)
+    order = torch.sort(d, stable=True).indices[:k]
+    order = order[torch.isfinite(d[order])]
+    return order.cpu().numpy()
+
+
+def recall_at_k(result_ids: np.ndarray, gt_ids: np.ndarray, k: int) -> float:
+    gt = set(int(x) for x in gt_ids[:k])
+    if not gt:
+        return 1.0
+    got = set(int(x) for x in result_ids[:k] if x >= 0)
+    return len(got & gt) / len(gt)

@@ -1,0 +1,151 @@
+"""Speculative pre-filtering (paper §3 Fig. 3a): attribute-index scan →
+in-memory PQ brute force over the superset → exact re-rank + verification.
+
+Counterpart of ``repro.core.prefilter``. The superset comes from
+``Selector.pre_filter_approx`` (host side, pages accounted). ``repro`` scans
+it in fixed-size chunks carrying a running top-(L+δ) with ``lax.top_k``;
+that running merge keeps, among equal distances, the earlier candidate, so
+it equals one stable sort of all candidate distances — which is what the
+port computes, on the device, in one pass.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import pq as pq_mod
+from repro_torch.core import search
+from repro_torch.core.records import RecordStore
+from repro_torch.core.selectors import (QueryFilter, Selector,
+                                        filter_to_device, is_member)
+from repro_torch.kernels.ref import BIG, sq_dist
+
+
+@dataclasses.dataclass(frozen=True)
+class PrefilterParams:
+    l_rerank: int            # L + δ: vectors fetched from SSD for re-ranking
+    k: int = 10
+    max_candidates: int = 1 << 20   # superset hard cap
+
+
+class PrefilterResult(NamedTuple):
+    ids: torch.Tensor        # (B, k) verified-valid top-k (-1 pad)
+    dists: torch.Tensor      # (B, k)
+    io_pages: torch.Tensor   # (B,) scan + re-rank pages
+    dist_comps: torch.Tensor  # (B,)
+    n_valid: torch.Tensor    # (B,)
+
+
+def _pq_topl(codes, codebook, query, cand_ids: torch.Tensor, l_rerank: int):
+    """Top-``l_rerank`` of the candidates by ADC distance, ties to the
+    earlier candidate; (-1, BIG) pads when there are fewer. Returns
+    (top_ids (l,), top_dists (l,))."""
+    table = pq_mod.distance_table(codebook, query)
+    d = pq_mod.adc_lookup(codes[cand_ids.long()], table)
+    order = torch.sort(d, stable=True).indices[:l_rerank]
+    dev = codes.device
+    top_ids = torch.full((l_rerank,), -1, dtype=torch.int32, device=dev)
+    top_d = torch.full((l_rerank,), BIG, dtype=torch.float32, device=dev)
+    top_ids[:order.numel()] = cand_ids[order]
+    top_d[:order.numel()] = d[order]
+    return top_ids, top_d
+
+
+def _verify_core(qf: QueryFilter, query, top_ids, vecs, rl, rv, k: int,
+                 pages_std: int):
+    """Exact distance + exact verification over already-fetched record
+    fields of one query (``qf`` fields carry a leading batch dim of 1)."""
+    live = top_ids >= 0
+    ex_d = torch.where(live, sq_dist(vecs, query[None, :]), BIG)
+    ok = is_member(qf, rl[None], rv[None])[0] & live
+    key = torch.where(ok, ex_d, BIG)
+    order = torch.sort(key, stable=True).indices[:k]
+    ok_o = ok[order]
+    ids = torch.where(ok_o, top_ids[order], -1)
+    dists = torch.where(ok_o, ex_d[order], float("inf"))
+    io = live.sum() * pages_std
+    return ids, dists, io, ok.sum()
+
+
+def _rerank_verify(store: RecordStore, qf: QueryFilter, query, top_ids,
+                   params: PrefilterParams):
+    """Fetch top-(L+δ) records, exact distance + exact verification."""
+    safe = torch.where(top_ids >= 0, top_ids, 0).long()
+    return _verify_core(qf, query, top_ids, store.vectors[safe],
+                        store.rec_labels[safe], store.rec_values[safe],
+                        params.k, store.pages_std)
+
+
+def prefilter_search(store: RecordStore, codes, codebook, selectors, qfilters,
+                     queries, params: PrefilterParams,
+                     speculative: bool = True,
+                     distance_fn=None) -> PrefilterResult:
+    """Host-driven pre-filtering for a query batch.
+
+    ``speculative=True`` uses Selector.pre_filter_approx (partial scans,
+    heavy-branch pruning); ``False`` forces exact full-constraint scans
+    (the strict baseline)."""
+    search.check_distance_fn(distance_fn)
+    dev = codes.device
+    B = len(selectors)
+    queries = torch.as_tensor(np.asarray(queries, np.float32)).to(dev)
+    qf_dev = filter_to_device(qfilters, dev)
+    out_ids, out_d, ios, nvs = [], [], [], []
+    pages = np.zeros(B, np.int64)
+    dist_comps = np.zeros(B, np.int64)
+    for b in range(B):
+        sel: Selector = selectors[b]
+        if speculative:
+            cand, pg = sel.pre_filter_approx()
+        else:
+            cand, pg = _strict_scan(sel)
+        cand = np.asarray(cand, np.int32)[:params.max_candidates]
+        qf = QueryFilter(*(x[b:b + 1] for x in qf_dev))
+        top_ids, _ = _pq_topl(codes, codebook, queries[b],
+                              torch.from_numpy(cand).to(dev),
+                              params.l_rerank)
+        ids, dists, io, nv = _rerank_verify(store, qf, queries[b], top_ids,
+                                            params)
+        out_ids.append(ids)
+        out_d.append(dists)
+        ios.append(io)
+        nvs.append(nv)
+        pages[b] = pg
+        dist_comps[b] = cand.size
+    io_pages = torch.stack(ios).cpu() + torch.from_numpy(pages)
+    return PrefilterResult(
+        ids=torch.stack(out_ids), dists=torch.stack(out_d),
+        io_pages=io_pages, dist_comps=torch.from_numpy(dist_comps),
+        n_valid=torch.stack(nvs).cpu())
+
+
+def _strict_scan(sel: Selector) -> tuple[np.ndarray, int]:
+    """Exact pre-filter: evaluate every branch (no pruning/speculation)."""
+    from repro_torch.core.selectors import (AndSelector, LabelAndSelector,
+                                            LabelOrSelector, OrSelector,
+                                            RangeSelector)
+    if isinstance(sel, LabelAndSelector):
+        merged, pages = sel._fetch_merged(sel.labels, "and")
+        return merged.astype(np.int32), pages
+    if isinstance(sel, LabelOrSelector):
+        merged, pages = sel._fetch_merged(sel.labels, "or")
+        return merged.astype(np.int32), pages
+    if isinstance(sel, RangeSelector):
+        ids, pages = sel._fs.scan(sel.lo, sel.hi)
+        return ids.astype(np.int32), pages
+    if isinstance(sel, AndSelector):
+        # every branch (optional label + all range predicates), intersected
+        ids, pages = _strict_scan(sel.children[0])
+        for c in sel.children[1:]:
+            more, p = _strict_scan(c)
+            ids = np.intersect1d(ids, more)
+            pages += p
+        return ids.astype(np.int32), pages
+    if isinstance(sel, OrSelector):
+        a, pa = _strict_scan(sel.label_sel)
+        b, pb = _strict_scan(sel.range_sel)
+        return np.union1d(a, b).astype(np.int32), pa + pb
+    return sel.pre_filter_approx()

@@ -1,0 +1,116 @@
+"""Kernel dispatch: CUDA tensors launch the hand-written kernel, CPU tensors
+take the plain PyTorch version in ``kernels/ref.py``.
+
+The choice follows the device of the tensors handed in, never
+``torch.cuda.is_available()``, and nothing falls back: a kernel that fails to
+build or launch raises. Each wrapper counts its kernel launches in
+``LAUNCHES`` (one per launch, nowhere else), so a run can show that its path
+went through the kernels; :func:`reset_launches` zeroes the counts.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref
+
+LAUNCHES = {"hop_fused": 0, "or_scatter": 0, "prune_scan": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+def _launch(fn_name: str, *args) -> None:
+    from repro_torch.kernels.build import library
+    err = getattr(library(), fn_name)(*args)
+    if err != 0:
+        raise RuntimeError(f"{fn_name} failed with CUDA error {err}")
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def hop_fused(codes_slab, blooms, buckets, in_merged, table, scalars,
+              or_masks, range_field, bucket_lo, bucket_hi):
+    """Fused hop candidate pass (B, C) slab -> (key (B, C) f32, ok (B, C)
+    bool); see ``ref.hop_fused_ref`` for the layout."""
+    if not codes_slab.is_cuda:
+        return ref.hop_fused_ref(codes_slab, blooms, buckets, in_merged,
+                                 table, scalars, or_masks, range_field,
+                                 bucket_lo, bucket_hi)
+    dev = codes_slab.device
+    b, c, m = codes_slab.shape
+    k = table.shape[-1]
+    f = buckets.shape[-1]
+    ql = or_masks.shape[-1]
+    nr = range_field.shape[-1]
+    _check("codes_slab", codes_slab, torch.uint8, (b, c, m), dev)
+    _check("blooms", blooms, torch.int32, (b, c), dev)
+    _check("buckets", buckets, torch.int32, (b, c, f), dev)
+    _check("in_merged", in_merged, torch.bool, (b, c), dev)
+    _check("table", table, torch.float32, (b, m, k), dev)
+    _check("scalars", scalars, torch.int32, (b, 4), dev)
+    _check("or_masks", or_masks, torch.int32, (b, ql), dev)
+    for name, t in (("range_field", range_field), ("bucket_lo", bucket_lo),
+                    ("bucket_hi", bucket_hi)):
+        _check(name, t, torch.int32, (b, nr), dev)
+    if m * k * 4 > 48 * 1024:
+        raise ValueError(f"hop_fused: table of {m}x{k} exceeds 48 KB of "
+                         "shared memory")
+    key = torch.empty((b, c), dtype=torch.float32, device=dev)
+    ok = torch.empty((b, c), dtype=torch.bool, device=dev)
+    _launch("hop_fused_launch", codes_slab.data_ptr(), blooms.data_ptr(),
+            buckets.data_ptr(), in_merged.data_ptr(), table.data_ptr(),
+            scalars.data_ptr(), or_masks.data_ptr(), range_field.data_ptr(),
+            bucket_lo.data_ptr(), bucket_hi.data_ptr(), key.data_ptr(),
+            ok.data_ptr(), b, c, m, k, f, ql, nr, _stream(dev))
+    LAUNCHES["hop_fused"] += 1
+    return key, ok
+
+
+def or_scatter(words, slots):
+    """Word-packed bitmap OR-scatter (B, NW) x (B, C) -> (B, NW), out of
+    place. Slots < 0 or >= NW*32 are dropped."""
+    if not words.is_cuda:
+        return ref.or_scatter_ref(words, slots)
+    dev = words.device
+    b, nw = words.shape
+    c = slots.shape[-1]
+    _check("words", words, torch.int32, (b, nw), dev)
+    _check("slots", slots, torch.int32, (b, c), dev)
+    out = torch.empty_like(words)
+    _launch("or_scatter_launch", words.data_ptr(), slots.data_ptr(),
+            out.data_ptr(), b, nw, c, _stream(dev))
+    LAUNCHES["or_scatter"] += 1
+    return out
+
+
+def prune_scan(dp_s, dcc_s, a2: float, r: int):
+    """RobustPrune domination scan (B, C) + (B, C, C) -> (B, C) keep mask."""
+    if not dp_s.is_cuda:
+        return ref.prune_scan_ref(dp_s, dcc_s, float(a2), int(r))
+    dev = dp_s.device
+    b, c = dp_s.shape
+    _check("dp_s", dp_s, torch.float32, (b, c), dev)
+    _check("dcc_s", dcc_s, torch.float32, (b, c, c), dev)
+    if c > 1024:
+        raise ValueError(f"prune_scan: {c} candidates exceed one block")
+    keep = torch.empty((b, c), dtype=torch.bool, device=dev)
+    _launch("prune_scan_launch", dp_s.data_ptr(), dcc_s.data_ptr(),
+            keep.data_ptr(), b, c, float(a2), int(r), _stream(dev))
+    LAUNCHES["prune_scan"] += 1
+    return keep

@@ -1,0 +1,79 @@
+"""The CUDA kernels of the port against their plain PyTorch versions, on
+the card. Every case skips where there is no CUDA device; on the machine
+with the card (which has no JAX) run
+
+    PYTHONPATH=src python -m pytest --noconftest tests/test_torch_cuda.py
+
+(``--noconftest``: tests/conftest.py builds a ``repro`` engine and so
+imports JAX)."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops as tops
+from torch_port_helpers import hop_inputs, or_inputs, prune_inputs
+
+
+@pytest.fixture
+def cuda():
+    """The card, decided at run time; skips where there is none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the chip)")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("b,c", [(1, 7), (64, 512)])
+def test_hop_fused_cuda_matches_plain(cuda, b, c):
+    rng = np.random.default_rng(b + c)
+    args = [torch.from_numpy(a) for a in hop_inputs(rng, b, c, m=16)]
+    key_p, ok_p = tops.hop_fused(*args)
+    key_k, ok_k = tops.hop_fused(*(a.to(cuda) for a in args))
+    torch.cuda.synchronize()
+    assert torch.equal(ok_k.cpu(), ok_p)
+    assert torch.equal(key_k.cpu().view(torch.int32), key_p.view(torch.int32))
+
+
+def test_hop_fused_cuda_out_of_range_field(cuda):
+    """A range slot naming field F reads 0 in the kernel and the plain
+    version alike."""
+    rng = np.random.default_rng(3)
+    args = list(hop_inputs(rng, 8, 256, m=16))
+    args[7][:, 0] = args[2].shape[-1]
+    args[8][::2] = 1
+    args = [torch.from_numpy(a) for a in args]
+    key_p, ok_p = tops.hop_fused(*args)
+    key_k, ok_k = tops.hop_fused(*(a.to(cuda) for a in args))
+    torch.cuda.synchronize()
+    assert torch.equal(ok_k.cpu(), ok_p)
+    assert torch.equal(key_k.cpu().view(torch.int32), key_p.view(torch.int32))
+
+
+@pytest.mark.parametrize("b,nw,c", [(3, 8, 33), (64, 32768, 32),
+                                    (64, 188, 2048)])
+def test_or_scatter_cuda_matches_plain(cuda, b, nw, c):
+    words, slots = or_inputs(b, nw, c, 0)
+    w, s = torch.from_numpy(words), torch.from_numpy(slots)
+    got = tops.or_scatter(w.to(cuda), s.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), tops.or_scatter(w, s))
+
+
+@pytest.mark.parametrize("c", [40, 74, 96])
+@pytest.mark.parametrize("alpha", [1.0, 1.2])
+def test_prune_scan_cuda_matches_plain(cuda, c, alpha):
+    rng = np.random.default_rng(c)
+    dp, dcc = (torch.from_numpy(a) for a in prune_inputs(rng, 256, c))
+    got = tops.prune_scan(dp.to(cuda), dcc.to(cuda), alpha * alpha, 32)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), tops.prune_scan(dp, dcc, alpha * alpha, 32))
+
+
+def test_cuda_wrappers_count_and_check(cuda):
+    tops.reset_launches()
+    words = torch.zeros((2, 4), dtype=torch.int32, device=cuda)
+    tops.or_scatter(words, torch.zeros((2, 3), dtype=torch.int32,
+                                       device=cuda))
+    assert tops.LAUNCHES["or_scatter"] == 1
+    with pytest.raises(TypeError):
+        tops.or_scatter(words.long(), torch.zeros((2, 3), dtype=torch.int32,
+                                                  device=cuda))

@@ -1,0 +1,160 @@
+"""The port's kernel plain versions against the JAX package's Pallas kernels
+(interpret mode) and its jnp references, on the shape grids of
+tests/test_kernels.py; integers and bools exact, the hop_fused key bitwise.
+
+The CUDA kernels themselves run only on a card: tests/test_torch_cuda.py
+holds each against its plain version there.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from torch_port_helpers import hop_inputs, or_inputs, prune_inputs
+
+
+# ---------------------------------------------------------------------------
+# hop_fused
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,c", [(1, 7), (3, 64), (4, 300), (2, 520)])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_hop_fused_matches_repro(b, c, seed):
+    rng = np.random.default_rng(seed * 100 + b * c)
+    args = hop_inputs(rng, b, c)
+    key_t, ok_t = tops.hop_fused(*(torch.from_numpy(a) for a in args))
+    jargs = [jnp.asarray(a) for a in args]
+    key_i, ok_i = jops.hop_fused_interpret(*jargs)
+    key_r, ok_r = jref.hop_fused_ref(*jargs)
+    np.testing.assert_array_equal(ok_t.numpy(), np.asarray(ok_r))
+    np.testing.assert_array_equal(ok_t.numpy(), np.asarray(ok_i))
+    # the key bit for bit: the ADC sum runs m left to right in all three
+    np.testing.assert_array_equal(key_t.numpy().view(np.int32),
+                                  np.asarray(key_r).view(np.int32))
+    np.testing.assert_array_equal(key_t.numpy().view(np.int32),
+                                  np.asarray(key_i).view(np.int32))
+
+
+@pytest.mark.parametrize("lo", [0, 1])
+def test_hop_fused_out_of_range_field_matches_repro(lo):
+    """A range slot naming field F (past the last bucket column) reads 0 in
+    the Pallas kernel; the plain version does the same. (``repro``'s jnp
+    reference gathers with JAX's out-of-bounds fill instead, so it is not
+    the oracle for this case.)"""
+    rng = np.random.default_rng(11 + lo)
+    args = list(hop_inputs(rng, 3, 64))
+    f = args[2].shape[-1]
+    args[7] = np.where(rng.random(args[7].shape) < 0.5, f,
+                       args[7]).astype(np.int32)
+    args[7][:, 0] = f
+    args[8] = np.full_like(args[8], lo)                   # 0 passes, 1 fails
+    key_t, ok_t = tops.hop_fused(*(torch.from_numpy(a) for a in args))
+    key_i, ok_i = jops.hop_fused_interpret(*[jnp.asarray(a) for a in args])
+    np.testing.assert_array_equal(ok_t.numpy(), np.asarray(ok_i))
+    np.testing.assert_array_equal(key_t.numpy().view(np.int32),
+                                  np.asarray(key_i).view(np.int32))
+
+
+def test_adc_slab_matches_repro():
+    rng = np.random.default_rng(5)
+    for m in (8, 16):
+        codes = rng.integers(0, 256, (3, 200, m)).astype(np.uint8)
+        table = (rng.normal(0, 1, (3, m, 256)) ** 2).astype(np.float32)
+        got = tref.adc_slab_ref(torch.from_numpy(codes),
+                                torch.from_numpy(table)).numpy()
+        want = np.asarray(jref.adc_slab_ref(jnp.asarray(codes),
+                                            jnp.asarray(table)))
+        np.testing.assert_array_equal(got.view(np.int32),
+                                      want.view(np.int32))
+
+
+# ---------------------------------------------------------------------------
+# or_scatter
+# ---------------------------------------------------------------------------
+
+def _or_scatter_numpy(words, slots):
+    out = np.asarray(words, np.int32).copy()
+    n_bits = out.shape[1] * 32
+    for b, row in enumerate(np.asarray(slots)):
+        for s in row:
+            if 0 <= s < n_bits:
+                out[b, s >> 5] |= np.int32(1) << np.int32(s & 31)
+    return out
+
+
+@pytest.mark.parametrize("b,nw,c", [(1, 1, 4), (3, 8, 33), (7, 4, 128),
+                                    (2, 32, 300)])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_or_scatter_matches_repro(b, nw, c, seed):
+    words, slots = or_inputs(b, nw, c, seed)
+    got = tops.or_scatter(torch.from_numpy(words),
+                          torch.from_numpy(slots)).numpy()
+    np.testing.assert_array_equal(got, _or_scatter_numpy(words, slots))
+    np.testing.assert_array_equal(got, np.asarray(jops.or_scatter_interpret(
+        jnp.asarray(words), jnp.asarray(slots))))
+    np.testing.assert_array_equal(got, np.asarray(jref.or_scatter_ref(
+        jnp.asarray(words), jnp.asarray(slots))))
+
+
+def test_or_scatter_idempotent_and_sign_bit():
+    words = torch.zeros((2, 2), dtype=torch.int32)
+    slots = torch.tensor([[31, 31, 0, 32, 0], [-1, 64, 64, 100, -5]],
+                         dtype=torch.int32)
+    want = np.array([[np.int32(1) << 31 | 1, 1], [0, 0]], np.int32)
+    got = tops.or_scatter(words, slots)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(tops.or_scatter(got, slots).numpy(), want)
+
+
+# ---------------------------------------------------------------------------
+# prune_scan
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,c,r", [(1, 16, 4), (8, 48, 12), (5, 96, 32),
+                                   (2, 33, 5)])
+@pytest.mark.parametrize("alpha", [1.0, 1.2])
+def test_prune_scan_matches_repro(b, c, r, alpha):
+    rng = np.random.default_rng(b * c + r)
+    dp, dcc = prune_inputs(rng, b, c)
+    a2 = alpha * alpha
+    got = tops.prune_scan(torch.from_numpy(dp), torch.from_numpy(dcc), a2,
+                          r).numpy()
+    from repro.kernels.prune_scan import prune_scan
+    want_i = np.asarray(prune_scan(jnp.asarray(dp), jnp.asarray(dcc), a2, r,
+                                   interpret=True))
+    want_r = np.asarray(jref.prune_scan_ref(jnp.asarray(dp),
+                                            jnp.asarray(dcc), a2, r))
+    np.testing.assert_array_equal(got, want_r)
+    np.testing.assert_array_equal(got, want_i)
+    assert (got.sum(1) <= r).all()
+
+
+def test_prune_scan_respects_cap():
+    rng = np.random.default_rng(7)
+    dp, dcc = (torch.from_numpy(a) for a in prune_inputs(rng, 6, 40, 0.0))
+    keep = tops.prune_scan(dp, torch.zeros_like(dcc), 1.0, 10)
+    assert (keep.sum(1) == 1).all()
+    keep = tops.prune_scan(dp, dcc, 1e9, 10)
+    assert (keep.sum(1) == 10).all()
+
+
+# ---------------------------------------------------------------------------
+# dispatch
+# ---------------------------------------------------------------------------
+
+def test_cpu_dispatch_counts_no_launch():
+    """CPU tensors take the plain versions and count no kernel launch."""
+    tops.reset_launches()
+    rng = np.random.default_rng(0)
+    tops.hop_fused(*(torch.from_numpy(a) for a in hop_inputs(rng, 2, 9)))
+    tops.or_scatter(torch.zeros((1, 2), dtype=torch.int32),
+                    torch.zeros((1, 3), dtype=torch.int32))
+    dp, dcc = prune_inputs(rng, 2, 8)
+    tops.prune_scan(torch.from_numpy(dp), torch.from_numpy(dcc), 1.0, 4)
+    assert tops.LAUNCHES == {"hop_fused": 0, "or_scatter": 0,
+                             "prune_scan": 0}
