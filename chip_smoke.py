@@ -11,12 +11,16 @@ Phases, each printing one JSON line:
 2. kernels — builds the CUDA kernels from ``src/repro_torch/kernels/csrc``
    (nvcc, sm_90a), calls each wrapper on card tensors at the main path's
    shapes and holds it against its plain PyTorch version on the same inputs
-   (hop_fused key bit-identical and ok equal, or_scatter words equal,
-   prune_scan keep mask equal), and times both with CUDA events.
+   (hop_fused key and pq_scan distances bit-identical, hop_fused ok equal,
+   or_scatter words equal, prune_scan keep mask equal), and times both with
+   CUDA events; for pq_scan also one PyTorch call that computes the same
+   function (``embedding_bag``), timed as a yardstick and used nowhere else.
 3. card vs CPU — builds an index on the card over the test corpus, copies
    it to the CPU with ``FilteredANNEngine.from_arrays`` and runs the same
    label / range / hybrid queries on both: routes, ids and integer counters
-   equal, distances allclose.
+   equal, distances allclose. The same for an ``Index`` built on the card
+   from metadata dicts: ``search_batch`` and ``approx_scan_batch`` under
+   DSL filters, card against CPU.
 4. full size — the main path at a deployment's data size: the index build
    (PQ, Vamana passes, 2-hop lists, record store) and filtered search under
    the speculative and post policies, with recall against brute force on
@@ -25,16 +29,28 @@ Phases, each printing one JSON line:
    last ``engine.search`` run; the diagnostics between them (graph stats,
    greedy recall, the hop-loop profile) and each run's result checks are
    left out of the counts.
+5. serving — the phase-4 engine behind ``Index`` and ``SearchServer``:
+   warmup over every degrade rung (the gated scan included), the affine
+   service model's calibration, a burst of DSL requests that walks the
+   queue up the ladder (every handle resolves or fails with ``Overloaded``
+   / ``DeadlineExceeded``, every returned id passes exact membership), then
+   ``approx_scan_batch`` alone on the 64 queries (QPS, pages, recall@10
+   against brute force on the card) and 8 of them against a CPU copy of the
+   engine. Launch counts are zeroed just before the warmup and read just
+   after the scan batch.
 
-Then a ``kernels`` line (launches from phase 4, times from phase 2), the
-card's name and power limit as ``nvidia-smi`` prints them, and last the
-result line. It exits non-zero, printing no result, when there is no CUDA
-device or the port's sources are missing; any failed check raises.
+Then a ``kernels`` line (launches of hop_fused, or_scatter and prune_scan
+from phase 4, of pq_scan from phase 5; times from phase 2), the card's name
+and power limit as ``nvidia-smi`` prints them, and last the result line. It
+exits non-zero, printing no result, when there is no CUDA device or the
+port's sources are missing; any failed check raises.
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
+import dataclasses
 import json
 import resource
 import subprocess
@@ -51,10 +67,11 @@ FULL_N = 1_000_000
 MIN_N = 250_000
 TIME_LIMIT_S = 1200.0           # the smoke's limit, kernel builds included
 MARGIN_S = 150.0
-# seconds of the full-size phase per corpus row: 1M rows took ~400 s on an
-# NVIDIA H100 80GB HBM3 at 700 W (this script's full-size phase at N=1M);
-# scaled linearly
-FULL_S_PER_ROW = 420.0 / 1_000_000
+# seconds of the full-size and serving phases per corpus row, scaled
+# linearly: at N=1M on an NVIDIA H100 80GB HBM3 at 700 W the full-size
+# phase took 281-394 s and the serving phase 46-56 s; host time varies by
+# up to 40% between machines
+FULL_S_PER_ROW = 600.0 / 1_000_000
 
 
 def emit(obj: dict) -> None:
@@ -204,7 +221,70 @@ def kernel_phase(dev) -> dict:
                 shape=[b, c], kept=kept,
                 max_abs_err=float((got.int() - want.int()).abs().max()),
                 bound_ms=bms, bound_by=by)
+
+    # pq_scan: the gated full-corpus scan (N = 1M rows) and a pre-route
+    # candidate set (50,000 rows), M=16 uint8 codes, K=256
+    m, k = 16, 256
+    for tag, n in (("scan", 1_000_000), ("pre", 50_000)):
+        codes = torch.from_numpy(
+            rng.integers(0, k, (n, m)).astype(np.uint8)).to(dev)
+        table = torch.from_numpy(
+            (rng.normal(0, 1, (m, k)) ** 2).astype(np.float32)).to(dev)
+        got = ops.pq_scan(codes, table)
+        want = ref.pq_scan_ref(codes, table)
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
+            f"pq_scan ({tag}): not bit-identical"
+        # the yardstick: one PyTorch call computing the same sums (in its
+        # own order), its flat indices prepared outside the timed region
+        flat_idx = codes.long() + torch.arange(m, device=dev) * k
+        flat_table = table.reshape(-1, 1)
+
+        def library():
+            return torch.nn.functional.embedding_bag(flat_idx, flat_table,
+                                                     mode="sum")
+
+        lib = library()[:, 0]
+        bms, by = bound(n * m + m * k * 4 + n * 4, n * m)
+        row = timed(lambda: ops.pq_scan(codes, table),
+                    lambda: ref.pq_scan_ref(codes, table), shape=[n, m, k],
+                    max_abs_err=float((got - want).abs().max()),
+                    bound_ms=bms, bound_by=by)
+        row["library_ms"], row["library_call_ms"] = time_ms(library)
+        row["library_max_abs_err"] = float((lib - want).abs().max())
+        out[f"pq_scan/{tag}"] = row
     return {"build_s": build_s, "results": out}
+
+
+def dsl_request(api, ds, i: int, kind: str, tag_field: str):
+    """Query ``i`` of the dataset as a ``SearchRequest`` under a DSL filter
+    of the given kind over its labels and value range."""
+    labels = ds.query_labels[i]
+    lo, hi = float(ds.query_ranges[i, 0]), float(ds.query_ranges[i, 1])
+    tag, num = api.Tag(tag_field), api.Num("value")
+    filt = {
+        "label": tag == labels[0],
+        "label_and": api.And.of(*[tag == lab for lab in labels]),
+        "range": num.between(lo, hi),
+        "hybrid": tag.isin(labels) | num.between(lo, hi),
+    }[kind]
+    return api.SearchRequest(query=ds.queries[i], filter=filt)
+
+
+def compare_results(label, got, want) -> None:
+    """Two ``(results, QueryStats)`` of the same requests: routes, ids and
+    integer counters equal, distances allclose."""
+    import numpy as np
+    (rg, sg), (rc, sc) = got, want
+    assert sg.mechanism == sc.mechanism, f"{label}: routes differ"
+    for f in ("io_pages", "hops", "explored", "dist_comps", "n_valid",
+              "fp_explored", "degraded"):
+        assert np.array_equal(getattr(sg, f), getattr(sc, f)), \
+            f"{label}: {f} differs"
+    for a, b in zip(rg, rc):
+        assert np.array_equal(a.ids, b.ids), f"{label}: ids differ"
+        assert np.allclose(a.dists, b.dists, rtol=1e-6, atol=1e-6), \
+            f"{label}: dists"
 
 
 # ---------------------------------------------------------------------------
@@ -248,6 +328,27 @@ def card_vs_cpu_phase(dev) -> dict:
         assert np.allclose(dg, dc, rtol=1e-6, atol=1e-6), f"{wl}: dists"
         mix = {m: sg.mechanism.count(m) for m in sorted(set(sg.mechanism))}
         out["workloads"][wl] = {"mechanisms": mix, "equal": True}
+
+    # the facade: an Index built on the card from metadata dicts, copied to
+    # the CPU through its engine's arrays
+    from repro_torch import api
+    t0 = time.perf_counter()
+    gidx = api.Index.build(ds.vectors, ds.metadata(), cfg, device=dev)
+    out["index_build_s"] = time.perf_counter() - t0
+    cidx = api.Index(eng.FilteredANNEngine.from_arrays(
+        gidx.engine.arrays(), cfg, device="cpu"), gidx.vocab, gidx.schema,
+        gidx.defaults)
+    out["index"] = {}
+    for kind in ("label", "label_and", "range", "hybrid"):
+        reqs = [dsl_request(api, ds, i, kind, "label")
+                for i in range(ds.queries.shape[0])]
+        for call in ("search_batch", "approx_scan_batch"):
+            got = getattr(gidx, call)(reqs, with_stats=True)
+            compare_results(f"Index.{call} {kind}", got,
+                            getattr(cidx, call)(reqs, with_stats=True))
+            mech = got[1].mechanism
+            out["index"][f"{call}/{kind}"] = {
+                m: mech.count(m) for m in sorted(set(mech))}
     return out
 
 
@@ -259,11 +360,11 @@ def card_vs_cpu_phase(dev) -> dict:
 def uncounted():
     """Leave the kernel launches made inside out of the counts."""
     from repro_torch.kernels import ops
-    saved = dict(ops.LAUNCHES)
+    saved = ops.snapshot()
     try:
         yield
     finally:
-        ops.LAUNCHES.update(saved)
+        ops.restore(saved)
 
 
 def _search_run(e, ds, sels, scfg, label, reachable, repeats: int = 5):
@@ -273,14 +374,15 @@ def _search_run(e, ds, sels, scfg, label, reachable, repeats: int = 5):
     from repro_torch.kernels import ops
 
     e.search(ds.queries, sels, scfg)                  # warm-up
-    before = dict(ops.LAUNCHES)
+    before = ops.snapshot()
     lat = []
     for _ in range(repeats):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         ids, dists, stats = e.search(ds.queries, sels, scfg)
         lat.append(time.perf_counter() - t0)
-    per_batch = {k: (ops.LAUNCHES[k] - before[k]) / repeats for k in before}
+    after = ops.snapshot()
+    per_batch = {k: (after[k] - before[k]) / repeats for k in before}
     with uncounted():
         row = _check_run(e, ds, sels, scfg, label, ids, stats, lat)
     return {**row, "reachable_from_medoid": reachable,
@@ -324,23 +426,30 @@ def _check_run(e, ds, sels, scfg, label, ids, stats, lat) -> dict:
     }
 
 
+def torch_ops(fn) -> int:
+    """PyTorch operator calls made by ``fn()``, counted by a dispatch mode;
+    the CUDA kernels, launched through ctypes, come on top."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    n = [0]
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            n[0] += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return n[0]
+
+
 def hop_profile(e, ds, cfg, hops: int = 32) -> dict:
     """The hop loop's layer metrics on the label workload in spec_in mode:
-    PyTorch operator calls in one hop (counted by a dispatch mode; the
-    CUDA kernels, launched through ctypes, come on top) and the wall time
+    PyTorch operator calls in one hop (:func:`torch_ops`) and the wall time
     per hop over one chunk of ``hops`` hops, synchronised."""
     import torch
-    from torch.utils._python_dispatch import TorchDispatchMode
     from repro_torch.core import search
     from repro_torch.core.selectors import stack_filters
     from repro_torch.data.synth import make_selectors
-
-    class Count(TorchDispatchMode):
-        n = 0
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            Count.n += 1
-            return func(*args, **(kwargs or {}))
 
     sels = make_selectors(ds, e, "label")
     qf = stack_filters([s.plan(cfg.ql, cfg.cap, cfg.qr).qfilter
@@ -351,21 +460,20 @@ def hop_profile(e, ds, cfg, hops: int = 32) -> dict:
                                  ds.queries, e.medoid, sp)
     mc = search._mc(e.mem, ctx, sp)
     rec = search._issue(e.store, st)
-    with Count():
-        st1 = search._hop_step(e.store, e.codes, sp, ctx, mc, st, rec)
-        search._issue(e.store, st1)
+    n_ops = torch_ops(lambda: search._issue(e.store, search._hop_step(
+        e.store, e.codes, sp, ctx, mc, st, rec)))
     torch.cuda.synchronize(e.device)
     t0 = time.perf_counter()
     search.run_hops(e.store, e.codes, e.mem, ctx, st, hops, sp)
     torch.cuda.synchronize(e.device)
-    return {"torch_ops_per_hop": Count.n, "queries": len(sels),
+    return {"torch_ops_per_hop": n_ops, "queries": len(sels),
             "ms_per_hop": (time.perf_counter() - t0) / hops * 1e3}
 
 
-def full_phase(dev, n: int) -> dict:
-    """Build and serve at full size. The launch counts cover the build and
+def full_phase(dev, n: int):
+    """Build and search at full size. The launch counts cover the build and
     the ``engine.search`` runs and nothing else; they are returned under
-    ``launches``."""
+    ``launches``. Returns ``(out, engine, dataset)``."""
     import torch
     from repro_torch.core import engine as eng
     from repro_torch.core import graph, records
@@ -385,7 +493,7 @@ def full_phase(dev, n: int) -> dict:
                                     ds.label_flat, ds.n_labels, ds.values,
                                     cfg, device=dev)
     out["build_s"] = time.perf_counter() - t0
-    out["launches_build"] = dict(ops.LAUNCHES)
+    out["launches_build"] = ops.snapshot()
     assert out["launches_build"]["prune_scan"] > 0, \
         "the build launched no prune_scan"
     out["build_stages_s"] = e.build_times
@@ -424,8 +532,177 @@ def full_phase(dev, n: int) -> dict:
             assert per_batch["hop_fused"] > 0, \
                 f"{run['run']}: no hop_fused launch"
         runs.append(run)
-    out["launches"] = dict(ops.LAUNCHES)
+    out["launches"] = ops.snapshot()
     out["searches"] = runs
+    return out, e, ds
+
+
+# ---------------------------------------------------------------------------
+# phase 5: serving on the full-size engine
+# ---------------------------------------------------------------------------
+
+def _check_members(index, reqs, results) -> int:
+    """Exact membership of every returned id; returns how many were
+    checked."""
+    import numpy as np
+    import torch
+    from repro_torch.core import engine as eng
+    from repro_torch.core.selectors import filter_to_device, stack_filters
+
+    e, cfg = index.engine, index.config
+    s = e.store
+    n = 0
+    for r, res in zip(reqs, results):
+        got = res.ids[res.ids >= 0]
+        if not got.size:
+            continue
+        qf = index.compile_filter(r.filter).plan(cfg.ql, cfg.cap,
+                                                 cfg.qr).qfilter
+        g = torch.from_numpy(got.astype(np.int64)).to(e.device)
+        ok = eng.is_member(filter_to_device(stack_filters([qf]), e.device),
+                           s.rec_labels[g][None], s.rec_values[g][None])
+        assert bool(ok.all()), "a served request returned an invalid id"
+        n += int(got.size)
+    return n
+
+
+def serve_phase(e, ds, dev) -> dict:
+    """The phase-4 engine behind ``Index`` and ``SearchServer``. The launch
+    counts cover the warmup, the calibration, the burst and the scan batch;
+    they are returned under ``launches``."""
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch.core import engine as eng
+    from repro_torch.kernels import ops
+    from repro_torch.serve import SearchServer, ServerConfig
+
+    schema = api.Schema(tags=("tag",), nums=("value",))
+    vocab = {("tag", i): i for i in range(e.label_store.n_labels)}
+    index = api.Index(e, vocab, schema)
+    nq = ds.queries.shape[0]
+    kinds = ("label", "range", "hybrid")
+    reqs = [dsl_request(api, ds, i % nq, kinds[i % 3], "tag")
+            for i in range(2 * nq)]
+    # a third of the burst carries a 3 s deadline
+    burst = [dataclasses.replace(r, deadline_us=3e6) if i % 3 == 0 else r
+             for i, r in enumerate(reqs)]
+    cfg = ServerConfig(max_queue=64, max_batch=16, max_delay_s=0.002,
+                       slo_p99_us=5e6)
+    out = {"n": e.n, "requests": len(burst), "server": dataclasses.asdict(cfg)}
+
+    ops.reset_launches()
+    srv = SearchServer(index, cfg)
+    try:
+        t0 = time.perf_counter()
+        srv.warmup(reqs[:16], ladder=False)
+        out["warmup_s"] = time.perf_counter() - t0
+        out["launches_warmup"] = ops.snapshot()
+        assert out["launches_warmup"]["pq_scan"] > 0, \
+            "the warmup's scan rung launched no pq_scan"
+        t0 = time.perf_counter()
+        overhead, slope = srv.calibrate_service_model(reqs[:16])
+        out["calibrate_s"] = time.perf_counter() - t0
+        out["service_model"] = {"overhead_us": overhead,
+                                "us_per_cost": slope}
+
+        handles, rejected, shed_admit = [], 0, 0
+        t0 = time.perf_counter()
+        for r in burst:
+            try:
+                handles.append((r, srv.submit(r)))
+            except api.Overloaded:
+                rejected += 1
+            except api.DeadlineExceeded:
+                shed_admit += 1
+        served, expired = [], 0
+        for r, h in handles:
+            try:
+                served.append((r, h, h.result(timeout=900)))
+            except api.DeadlineExceeded:
+                expired += 1
+        out["burst_s"] = time.perf_counter() - t0
+        st = srv.stats()
+    finally:
+        srv.stop()
+    assert len(served) + expired + rejected + shed_admit == len(burst)
+
+    torch.cuda.synchronize(dev)
+    scan_reqs = reqs[:nq]
+    before = ops.snapshot()
+    t0 = time.perf_counter()
+    scan_res, scan_st = index.approx_scan_batch(scan_reqs, with_stats=True,
+                                                with_metadata=False)
+    scan_s = time.perf_counter() - t0
+    out["launches"] = ops.snapshot()
+    out["launches_scan_batch"] = {k: out["launches"][k] - before[k]
+                                  for k in before}
+
+    with uncounted():
+        out["burst"] = {
+            "completed": st.completed, "admitted": st.admitted,
+            "rejected_overload": st.rejected_overload,
+            "shed_deadline": st.shed_deadline,
+            "shed_at_admission": shed_admit, "expired_in_queue": expired,
+            "deadline_misses": st.deadline_misses,
+            "degraded_served": st.degraded_served,
+            "rungs": dict(collections.Counter(h.rung for _, h, _ in served)),
+            "mechanisms": dict(collections.Counter(
+                res.stats.mechanism for _, _, res in served)),
+            "p50_ms": st.p50_us / 1e3, "p99_ms": st.p99_us / 1e3,
+            "verified_ids": _check_members(
+                index, [r for r, _, _ in served],
+                [res for _, _, res in served]),
+        }
+        rec = []
+        k = index.defaults.k
+        s, cfg_i = e.store, e.config
+        for r, res in zip(scan_reqs, scan_res):
+            qf = index.compile_filter(r.filter).plan(
+                cfg_i.ql, cfg_i.cap, cfg_i.qr).qfilter
+            gt = eng.brute_force_filtered(s.vectors, s.rec_labels,
+                                          s.rec_values, qf, r.query, k)
+            rec.append(eng.recall_at_k(res.ids, gt, k))
+        out["scan"] = {
+            "queries": nq, "qps": nq / scan_s, "ms_per_query":
+            scan_s / nq * 1e3, "mean_io_pages": float(np.mean(
+                scan_st.io_pages)), "recall_at_10": float(np.mean(rec)),
+            "recall_at_10_by_kind": {
+                kind: float(np.mean(rec[j::3])) for j, kind in
+                enumerate(kinds)},
+            "rerank": int(scan_st.explored[0]),
+            "verified_ids": _check_members(index, scan_reqs, scan_res),
+        }
+        # how far ADC ranking alone carries the scan rung: the share of each
+        # query's exact unfiltered top-k inside its ADC top-rerank
+        from repro_torch.core import pq as pq_mod
+        hit = []
+        for q in ds.queries:
+            qt = torch.from_numpy(q).to(dev)
+            adc = ops.pq_scan(e.codes, pq_mod.distance_table(e.codebook, qt))
+            top = torch.topk(adc, out["scan"]["rerank"], largest=False)
+            exact = ((s.vectors - qt) ** 2).sum(1)
+            gt_k = torch.topk(exact, k, largest=False).indices
+            hit.append(float(torch.isin(gt_k, top.indices).float().mean()))
+        out["scan"]["adc_top_rerank_recall_unfiltered"] = float(np.mean(hit))
+        out["scan"]["torch_ops_per_query"] = torch_ops(
+            lambda: index.approx_scan_batch(scan_reqs[:1],
+                                            with_metadata=False))
+
+        # 8 of the scan queries against a CPU copy of the engine
+        t0 = time.perf_counter()
+        cpu = api.Index(eng.FilteredANNEngine.from_arrays(
+            e.arrays(), e.config, device="cpu"), vocab, schema)
+        out["cpu_copy_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu_res = cpu.approx_scan_batch(scan_reqs[:8], with_stats=True,
+                                        with_metadata=False)
+        out["cpu_scan_s"] = time.perf_counter() - t0
+        first8 = (scan_res[:8], eng.QueryStats(**{
+            f.name: getattr(scan_st, f.name)[:8]
+            for f in dataclasses.fields(eng.QueryStats)}))
+        compare_results("approx_scan card vs CPU", first8, cpu_res)
+        out["scan"]["card_equals_cpu_on"] = 8
     return out
 
 
@@ -440,7 +717,12 @@ KERNELS = {
     "prune_scan": ("prune_scan/C96/a2=1.44",
                    "src/repro_torch/kernels/csrc/prune_scan.cu",
                    "src/repro/kernels/prune_scan.py:58"),
+    "pq_scan": ("pq_scan/scan", "src/repro_torch/kernels/csrc/pq_scan.cu",
+                "src/repro/kernels/pq_scan.py:48"),
 }
+# the phase whose run counts each kernel's launches
+LAUNCH_PHASE = {"hop_fused": "full", "or_scatter": "full",
+                "prune_scan": "full", "pq_scan": "serve"}
 
 
 def main(argv=None) -> int:
@@ -483,24 +765,32 @@ def main(argv=None) -> int:
         n = max(MIN_N, n // 2)
 
     t0 = time.perf_counter()
-    full = full_phase(dev, n)
+    full, e, ds = full_phase(dev, n)
     full["seconds"] = time.perf_counter() - t0
-    launches = full["launches"]
-    for name, count in launches.items():
-        assert count > 0, f"{name} was not launched on the main path"
 
+    t0 = time.perf_counter()
+    serve = serve_phase(e, ds, dev)
+    serve["seconds"] = time.perf_counter() - t0
+    emit({"phase": "serve", **serve})
+
+    launches = {"full": full["launches"], "serve": serve["launches"]}
     rows = []
     for name, (key, source, replaces) in KERNELS.items():
+        count = launches[LAUNCH_PHASE[name]][name]
+        assert count > 0, f"{name} was not launched on the main path"
         r = kern["results"][key]
         rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": launches[name],
+                     "replaces": replaces, "launches": count,
+                     "launches_by_phase": {p: c[name]
+                                           for p, c in launches.items()},
                      "shape": r["shape"], "max_abs_err": r["max_abs_err"],
                      "ms": r["ms"], "kernel_ms": r["ms"],
                      "call_ms": r["call_ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"],
-                     "bound_by": r["bound_by"], "library_ms": None})
+                     "bound_by": r["bound_by"],
+                     "library_ms": r.get("library_ms")})
     emit({"kernels": rows, "n_full": full["n"], "n_cuts": cuts,
-          "full_phase_s": full["seconds"],
+          "full_phase_s": full["seconds"], "serve_phase_s": serve["seconds"],
           "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,0 +1,362 @@
+"""``Index`` — the public facade over the filtered-ANN engine.
+
+Callers hand over vectors plus one plain metadata dict per record; the
+facade owns the attribute :class:`~repro_torch.api.schema.Schema`, the tag
+vocabulary, CSR label arrays, attribute stores, and the engine build.
+Categorical values (str/int/bool, or lists thereof) become labels in a
+per-field namespace; every ``Schema.nums`` field becomes one column of
+the dense ``(n, F)`` numeric value matrix — queries may then AND range
+predicates over several numeric fields and still compile onto the device
+verification path.
+
+The facade is also the DSL compiler's catalog: ``Tag``/``Num`` expressions
+resolve against its schema/vocabulary, and results come back with metadata
+re-resolved from the attribute stores.
+
+Counterpart of ``repro.api.index``. The index lives on ``device`` (``None``:
+the card). An index built elsewhere — another port index's
+``engine.arrays()``, or the JAX package's state as numpy — is wrapped as
+``Index(FilteredANNEngine.from_arrays(arrays, config, device), vocab,
+schema, defaults)``. Checkpoints (``save``/``load``), the disk store,
+sharded builds and inserts are later slices of the port and raise
+``NotImplementedError`` naming their ROADMAP item.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
+
+import numpy as np
+
+from repro_torch.api.filters import (FilterExpr, _check_fields, compile_expr,
+                                     eval_mask)
+from repro_torch.api.schema import Schema
+from repro_torch.api.types import RequestStats, SearchRequest, SearchResult
+from repro_torch.core.engine import (ROADMAP_LATER, FilteredANNEngine,
+                                     IndexConfig, QueryStats, SearchConfig,
+                                     brute_force_filtered)
+from repro_torch.core.labels import LabelStore
+from repro_torch.core.ranges import MultiRangeStore
+from repro_torch.core.records import RecordStore
+from repro_torch.core.selectors import (MaskSelector, MatchAllSelector,
+                                        Selector)
+
+
+def _is_numeric(v) -> bool:
+    return isinstance(v, (float, np.floating)) and not isinstance(v, bool)
+
+
+def _norm_tag(v):
+    """Canonical (hashable, JSON-able) form of a tag value."""
+    if isinstance(v, (bool, np.bool_)):
+        return bool(v)
+    if isinstance(v, (int, np.integer)):
+        return int(v)
+    if isinstance(v, str):
+        return v
+    raise TypeError(f"unsupported tag value {v!r} "
+                    "(tags must be str/int/bool)")
+
+
+def _ingest_metadata(metadata: Sequence[dict], schema: Schema,
+                     vocab: Optional[dict] = None):
+    """Plain per-record dicts -> (vocab, CSR labels, (n, F) values).
+
+    Pass an existing ``vocab`` to extend it in place. The schema is strict:
+    every record must carry every numeric field (the value matrix is
+    dense), tag fields may be sparse, and keys outside the schema are
+    rejected — a live index cannot grow an attribute column retroactively.
+    """
+    if vocab is None:
+        vocab = {}              # (field, value) -> label id
+    num_col = {f: j for j, f in enumerate(schema.nums)}
+    flat: list = []
+    offsets = np.zeros(len(metadata) + 1, np.int64)
+    values = np.zeros((len(metadata), schema.n_fields), np.float32)
+    for i, d in enumerate(metadata):
+        n_tags = 0
+        seen: set = set()       # dedupe repeated tags within one record
+        for key, v in d.items():
+            if key in num_col:
+                if (not _is_numeric(v)
+                        and not isinstance(v, (int, np.integer))
+                        or isinstance(v, bool)):
+                    raise ValueError(
+                        f"record {i}: numeric field {key!r} holds "
+                        f"non-numeric value {v!r}")
+                values[i, num_col[key]] = float(v)
+                continue
+            if key not in schema.tags:
+                kind = "numeric" if _is_numeric(v) else "tag"
+                raise ValueError(
+                    f"record {i}: field {key!r} is not in the index schema "
+                    f"(tags={list(schema.tags)}, nums={list(schema.nums)}); "
+                    f"a new {kind} field cannot be added to a built index")
+            for tag in (v if isinstance(v, (list, tuple, set, frozenset))
+                        else (v,)):
+                if _is_numeric(tag):
+                    raise ValueError(
+                        f"record {i}: float value in tag field {key!r} "
+                        f"(numeric fields: {list(schema.nums)})")
+                pair = (key, _norm_tag(tag))
+                if pair in seen:
+                    continue
+                seen.add(pair)
+                lab = vocab.setdefault(pair, len(vocab))
+                flat.append(lab)
+                n_tags += 1
+        for f in schema.nums:
+            if f not in d:
+                raise ValueError(
+                    f"record {i} is missing the numeric field "
+                    f"{f!r}; every record needs a value "
+                    "(the range store is dense)")
+        offsets[i + 1] = offsets[i] + n_tags
+    label_flat = np.asarray(flat, np.int32)
+    return vocab, offsets, label_flat, values
+
+
+class Index:
+    """Filtered vector index with a declarative, schema-first query surface."""
+
+    def __init__(self, engine: FilteredANNEngine, vocab: dict,
+                 schema: Schema,
+                 defaults: SearchConfig = SearchConfig()):
+        self.engine = engine
+        self.vocab = vocab                      # (field, value) -> label id
+        self.schema = schema
+        self.defaults = defaults
+        self._label_names = [None] * len(vocab)  # label id -> (field, value)
+        for (field, value), lab in vocab.items():
+            self._label_names[lab] = (field, value)
+
+    # -- construction ---------------------------------------------------
+    @classmethod
+    def build(cls, vectors: np.ndarray, metadata: Sequence[dict],
+              config: IndexConfig = IndexConfig(),
+              schema: Optional[Schema] = None,
+              defaults: SearchConfig = SearchConfig(),
+              store: str = "device",
+              shards: int = 0,
+              device=None) -> "Index":
+        """Build an index over ``vectors`` + per-record metadata dicts on
+        ``device`` (``None``: the card).
+
+        ``schema`` declares the attribute fields explicitly; when omitted
+        it is inferred from the metadata (float values ⇒ numeric fields,
+        everything else ⇒ tag fields).
+
+        ``store="disk"`` and ``shards > 1`` are later slices of the port and raise
+        ``NotImplementedError``.
+        """
+        if store not in ("device", "disk"):
+            raise ValueError(f"unknown store backend {store!r} "
+                             "(expected 'device' or 'disk')")
+        if store == "disk":
+            raise NotImplementedError("Index.build(store='disk'): the disk "
+                                      "tier is " + ROADMAP_LATER.format(6))
+        if shards > 1:
+            raise NotImplementedError(
+                "Index.build(shards > 1): sharding on torch.distributed is "
+                + ROADMAP_LATER.format(7))
+        vectors = np.asarray(vectors, np.float32)
+        if len(metadata) != vectors.shape[0]:
+            raise ValueError(f"{vectors.shape[0]} vectors but "
+                             f"{len(metadata)} metadata dicts")
+        if schema is None:
+            schema = Schema.infer(metadata)
+        vocab, offsets, label_flat, values = _ingest_metadata(metadata,
+                                                              schema)
+        engine = FilteredANNEngine.build(
+            vectors, offsets, label_flat, max(1, len(vocab)), values, config,
+            device=device)
+        return cls(engine, vocab, schema, defaults)
+
+    def insert(self, vectors: np.ndarray,
+               metadata: Sequence[dict]) -> np.ndarray:
+        raise NotImplementedError("Index.insert: IncrementalBuilder is "
+                                  + ROADMAP_LATER.format(3))
+
+    def save(self, path: str, injector=None):
+        raise NotImplementedError("Index.save: checkpoints are "
+                                  + ROADMAP_LATER.format("2b"))
+
+    @classmethod
+    def load(cls, path: str, shards: int = 0) -> "Index":
+        raise NotImplementedError("Index.load: checkpoints are "
+                                  + ROADMAP_LATER.format("2b"))
+
+    # -- catalog duck type (used by the filter compiler) ----------------
+    @property
+    def label_store(self) -> LabelStore:
+        return self.engine.label_store
+
+    @property
+    def range_store(self) -> MultiRangeStore:
+        return self.engine.range_store
+
+    @property
+    def store(self) -> RecordStore:
+        return self.engine.store
+
+    @property
+    def config(self) -> IndexConfig:
+        return self.engine.config
+
+    @property
+    def n_vectors(self) -> int:
+        return self.engine.n
+
+    @property
+    def ql(self) -> int:
+        return self.engine.config.ql
+
+    @property
+    def qr(self) -> int:
+        return self.engine.config.qr
+
+    def label_id(self, field: str, value) -> Optional[int]:
+        try:
+            return self.vocab.get((field, _norm_tag(value)))
+        except TypeError:
+            return None
+
+    def __len__(self) -> int:
+        return self.n_vectors
+
+    @property
+    def dim(self) -> int:
+        return self.engine.store.dim
+
+    # -- metadata resolution --------------------------------------------
+    def record_metadata(self, rec_id: int) -> dict:
+        """Re-resolve one record's metadata dict from the attribute stores.
+
+        Multi-valued tag fields come back as sorted lists."""
+        out: dict = {}
+        for lab in self.label_store.labels_of(rec_id):
+            field, value = self._label_names[int(lab)]
+            if field in out:
+                prev = out[field] if isinstance(out[field], list) \
+                    else [out[field]]
+                out[field] = sorted(prev + [value], key=repr)
+            else:
+                out[field] = value
+        for j, field in enumerate(self.schema.nums):
+            out[field] = float(
+                self.range_store.field_store(j).values[rec_id])
+        return out
+
+    # -- query path ------------------------------------------------------
+    def compile_filter(self, f) -> Selector:
+        if f is None:
+            return MatchAllSelector(self.n_vectors)
+        if isinstance(f, Selector):
+            return f
+        return compile_expr(f, self)
+
+    def _resolve_scfg(self, request: SearchRequest) -> SearchConfig:
+        over = request.overrides()
+        return dataclasses.replace(self.defaults, **over) if over \
+            else self.defaults
+
+    def search_batch(self, requests: Sequence[SearchRequest],
+                     with_stats: bool = False,
+                     with_metadata: bool = True,
+                     scfgs: Optional[Sequence[SearchConfig]] = None):
+        """Execute a batch through the grouped request path.
+
+        Returns list[SearchResult] (plus the raw batched QueryStats when
+        ``with_stats``). ``with_metadata=False`` skips the host-side
+        per-hit metadata resolution (benchmark timing paths). ``scfgs``
+        replaces the per-request config resolution wholesale — the serve
+        tier's degrade ladder passes rung-adjusted configs here while the
+        requests themselves stay untouched."""
+        if not requests:
+            return ([], QueryStats.empty()) if with_stats else []
+        queries, selectors, scfgs = self._prepare(requests, scfgs)
+        ids, dists, stats = self.engine.execute(queries, selectors, scfgs)
+        return self._assemble(requests, ids, dists, stats, with_stats,
+                              with_metadata)
+
+    def approx_scan_batch(self, requests: Sequence[SearchRequest],
+                          with_stats: bool = False,
+                          with_metadata: bool = True,
+                          scfgs: Optional[Sequence[SearchConfig]] = None):
+        """Execute a batch through the last-rung degrade path (gated
+        full-corpus ADC scan + exact verify — ``engine.approx_scan``).
+        Same surface as :meth:`search_batch`; results are flagged via
+        ``stats.degraded``."""
+        if not requests:
+            return ([], QueryStats.empty()) if with_stats else []
+        queries, selectors, scfgs = self._prepare(requests, scfgs)
+        ids, dists, stats = self.engine.approx_scan(queries, selectors,
+                                                    scfgs)
+        return self._assemble(requests, ids, dists, stats, with_stats,
+                              with_metadata)
+
+    def _prepare(self, requests, scfgs):
+        queries = np.stack([np.asarray(r.query, np.float32).reshape(-1)
+                            for r in requests])
+        if queries.shape[1] > self.dim:
+            raise ValueError(f"query dim {queries.shape[1]} exceeds index "
+                             f"dim {self.dim}")
+        selectors = [self.compile_filter(r.filter) for r in requests]
+        if scfgs is None:
+            scfgs = [self._resolve_scfg(r) for r in requests]
+        else:
+            scfgs = list(scfgs)
+            assert len(scfgs) == len(requests)
+        return queries, selectors, scfgs
+
+    def _assemble(self, requests, ids, dists, stats, with_stats,
+                  with_metadata):
+        results = []
+        for i in range(len(requests)):
+            meta = [self.record_metadata(int(x))
+                    if with_metadata and x >= 0 else None
+                    for x in ids[i]]
+            results.append(SearchResult(
+                ids=np.asarray(ids[i]), dists=np.asarray(dists[i]),
+                metadata=meta,
+                stats=RequestStats.from_query_stats(stats, i)))
+        return (results, stats) if with_stats else results
+
+    def search(self, request: SearchRequest) -> SearchResult:
+        return self.search_batch([request])[0]
+
+    def ground_truth(self, request: SearchRequest) -> np.ndarray:
+        """Exact filtered top-k ids by brute force (for recall evaluation).
+
+        A DSL filter (or none) is evaluated exactly on the host with numpy,
+        as ``repro`` does, so the ids equal ``repro``'s; a raw ``Selector``
+        is verified on the index's device
+        (``engine.brute_force_filtered``)."""
+        k = request.k if request.k is not None else self.defaults.k
+        n = self.n_vectors
+        q = np.asarray(request.query, np.float32).reshape(-1)
+        if q.shape[0] > self.dim:
+            raise ValueError(f"query dim {q.shape[0]} exceeds index "
+                             f"dim {self.dim}")
+        if q.shape[0] != self.dim:
+            q = np.pad(q, (0, self.dim - q.shape[0]))
+        f = request.filter
+        if f is None or isinstance(f, FilterExpr):
+            if f is not None:
+                _check_fields(f, self)
+            mask, _ = eval_mask(f, self)
+        elif isinstance(f, MaskSelector):
+            mask = np.zeros(n, bool)
+            mask[f.valid_ids] = True
+        elif isinstance(f, Selector):
+            plan = f.plan(self.config.ql, self.config.cap, self.config.qr)
+            s = self.store
+            return brute_force_filtered(s.vectors[:n], s.rec_labels[:n],
+                                        s.rec_values[:n], plan.qfilter, q, k)
+        else:
+            raise TypeError(f"unsupported filter {f!r}")
+        vecs = self.store.vectors[:n].cpu().numpy()
+        d = np.sum((vecs - q[None, :]) ** 2, axis=1)
+        d = np.where(mask, d, np.inf)
+        order = np.argsort(d)[:k]
+        return order[np.isfinite(d[order])]

@@ -32,8 +32,9 @@ from repro_torch.core.labels import (LabelStore, build_label_store,
                                      padded_vec_labels)
 from repro_torch.core.ranges import MultiRangeStore, build_multi_range_store
 from repro_torch.core.records import RecordStore, make_record_store
-from repro_torch.core.selectors import (InMemory, Selector, filter_to_device,
-                                        is_member, stack_filters)
+from repro_torch.core.selectors import (InMemory, QueryFilter, Selector,
+                                        filter_to_device, is_member,
+                                        stack_filters)
 from repro_torch.device import resolve_device
 
 ROADMAP_LATER = "a later slice of the port (ROADMAP queue A, item {})"
@@ -300,10 +301,65 @@ class FilteredANNEngine:
         raise NotImplementedError("insert: IncrementalBuilder is "
                                   + ROADMAP_LATER.format(3))
 
-    def approx_scan(self, queries, selectors, scfgs):
-        raise NotImplementedError("approx_scan: the gated full-corpus scan "
-                                  "(scan_all_gated) and serving are "
-                                  + ROADMAP_LATER.format(5))
+    def approx_scan(self, queries: np.ndarray,
+                    selectors: Sequence[Selector],
+                    scfgs: Sequence[SearchConfig]):
+        """Last-rung degrade execution (serve overload ladder): a gated
+        full-corpus ADC scan over the in-memory code tier
+        (``prefilter.scan_all_gated``), then exact fetch + verification of
+        the top re-rank set — no graph traversal, I/O bounded by the
+        re-rank budget.
+
+        Same return shape as :meth:`execute`. Candidate generation is
+        approximate (ADC order + superset membership gate over *every* id,
+        so no valid record can be excluded), results are exactly verified
+        (no false positives), and every query is flagged in
+        ``stats.degraded`` with mechanism ``"scan"``."""
+        queries = np.asarray(queries, np.float32)
+        if queries.shape[1] != self.store.dim:
+            pad = self.store.dim - queries.shape[1]
+            queries = np.pad(queries, ((0, 0), (0, pad)))
+        B = queries.shape[0]
+        assert len(selectors) == B and len(scfgs) == B
+        cfg = self.config
+        plans = [s.plan(cfg.ql, cfg.cap, cfg.qr) for s in selectors]
+        out_ids: list = [None] * B
+        out_d: list = [None] * B
+        stats = QueryStats(
+            mechanism=["scan"] * B,
+            io_pages=np.zeros(B, np.int64), est_io_pages=np.zeros(B),
+            dist_comps=np.zeros(B, np.int64), est_compute=np.zeros(B),
+            hops=np.zeros(B, np.int64), fp_explored=np.zeros(B, np.int64),
+            explored=np.zeros(B, np.int64), n_valid=np.zeros(B, np.int64),
+            selectivity=np.array([p.selectivity for p in plans]),
+            precision_in=np.array([p.precision_in for p in plans]),
+            faults=np.zeros(B, np.int64), retries=np.zeros(B, np.int64),
+            degraded=np.ones(B, np.int64))
+        if B == 0:
+            return out_ids, out_d, stats
+        q_dev = torch.from_numpy(queries).to(self.device)
+        qf_dev = filter_to_device(stack_filters([p.qfilter for p in plans]),
+                                  self.device)
+        for i in range(B):
+            scfg = scfgs[i]
+            rerank = scan_rerank(scfg)
+            qf = QueryFilter(*(x[i:i + 1] for x in qf_dev))
+            top_ids, _ = prefilter.scan_all_gated(
+                self.codes, self.codebook, self.mem, qf, q_dev[i], rerank)
+            pp = prefilter.PrefilterParams(l_rerank=rerank, k=scfg.k)
+            ids, dists, io, nv = prefilter._rerank_verify(
+                self.store, qf, q_dev[i], top_ids, pp)
+            est = cost_model.approx_scan_cost(
+                self.cost_inputs(plans[i], scfg), rerank)
+            out_ids[i] = ids.cpu().numpy()
+            out_d[i] = dists.cpu().numpy()
+            stats.io_pages[i] = int(io)
+            stats.est_io_pages[i] = est.io_pages
+            stats.dist_comps[i] = int(self.codes.shape[0])
+            stats.est_compute[i] = est.compute
+            stats.explored[i] = rerank
+            stats.n_valid[i] = int(nv)
+        return out_ids, out_d, stats
 
     # ------------------------------------------------------------------
     def cost_inputs(self, plan, scfg: SearchConfig) -> cost_model.CostInputs:

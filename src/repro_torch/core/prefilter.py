@@ -1,12 +1,14 @@
 """Speculative pre-filtering (paper §3 Fig. 3a): attribute-index scan →
-in-memory PQ brute force over the superset → exact re-rank + verification.
+in-memory PQ brute force over the superset → exact re-rank + verification;
+and the serve tier's gated full-corpus scan (:func:`scan_all_gated`).
 
 Counterpart of ``repro.core.prefilter``. The superset comes from
 ``Selector.pre_filter_approx`` (host side, pages accounted). ``repro`` scans
 it in fixed-size chunks carrying a running top-(L+δ) with ``lax.top_k``;
 that running merge keeps, among equal distances, the earlier candidate, so
 it equals one stable sort of all candidate distances — which is what the
-port computes, on the device, in one pass.
+port computes, on the device, in one pass. Both scans compute their ADC
+distances with the ``pq_scan`` kernel (``kernels.ops.pq_scan``).
 """
 from __future__ import annotations
 
@@ -19,9 +21,11 @@ import torch
 from repro_torch.core import pq as pq_mod
 from repro_torch.core import search
 from repro_torch.core.records import RecordStore
-from repro_torch.core.selectors import (QueryFilter, Selector,
-                                        filter_to_device, is_member)
-from repro_torch.kernels.ref import BIG, sq_dist
+from repro_torch.core.selectors import (InMemory, QueryFilter, Selector,
+                                        filter_to_device, is_member,
+                                        is_member_approx)
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import BIG, INVALID_PENALTY, sq_dist
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,14 +48,49 @@ def _pq_topl(codes, codebook, query, cand_ids: torch.Tensor, l_rerank: int):
     earlier candidate; (-1, BIG) pads when there are fewer. Returns
     (top_ids (l,), top_dists (l,))."""
     table = pq_mod.distance_table(codebook, query)
-    d = pq_mod.adc_lookup(codes[cand_ids.long()], table)
-    order = torch.sort(d, stable=True).indices[:l_rerank]
-    dev = codes.device
+    d = ops.pq_scan(codes[cand_ids.long()], table)
+    return _stable_topl(cand_ids, d, l_rerank)
+
+
+def _stable_topl(ids: torch.Tensor, keys: torch.Tensor, l_rerank: int):
+    """The first ``l_rerank`` of ``(ids, keys)`` in a stable sort by key
+    (ties to the earlier entry), padded with (-1, BIG) when there are
+    fewer: what ``repro``'s running ``lax.top_k`` merge over chunks
+    returns, its init entries (-1, BIG) ahead of any later BIG key."""
+    order = torch.sort(keys, stable=True).indices[:l_rerank]
+    dev = keys.device
     top_ids = torch.full((l_rerank,), -1, dtype=torch.int32, device=dev)
     top_d = torch.full((l_rerank,), BIG, dtype=torch.float32, device=dev)
-    top_ids[:order.numel()] = cand_ids[order]
-    top_d[:order.numel()] = d[order]
+    top_ids[:order.numel()] = ids[order]
+    top_d[:order.numel()] = keys[order]
     return top_ids, top_d
+
+
+def scan_all_gated(codes, codebook, mem: InMemory, qf: QueryFilter, query,
+                   l_rerank: int):
+    """Gated full-corpus ADC scan: the serve tier's last degrade rung.
+
+    Every id is a candidate (no posting scan, no graph traversal — one
+    pass of the ``pq_scan`` kernel over the in-memory code tier), ranked
+    by ADC distance plus ``INVALID_PENALTY`` where the *approximate*
+    membership gate rejects. The gate only over-admits, so no truly-valid
+    record is pushed behind an invalid one; exactness comes from the
+    caller's fetch + exact verify of the returned top-``l_rerank``.
+
+    ``qf`` is one query's device QueryFilter with a leading batch dim of 1;
+    ``query`` (D,). Returns ``(top_ids (l_rerank,), top_keys)``; ids whose
+    key carries the penalty are approx-invalid fill (the verifier drops
+    them). The penalty is one float32 addition, as in ``repro``: at 1e12
+    one float32 ulp is 65,536, so every rejected row gets the same key and
+    their ties break by id.
+    """
+    table = pq_mod.distance_table(codebook, query)
+    d = ops.pq_scan(codes, table)
+    n = codes.shape[0]
+    ids = torch.arange(n, dtype=torch.int32, device=codes.device)
+    ok = is_member_approx(qf, ids[None, :], mem)[0]
+    penalty = torch.where(ok, 0.0, INVALID_PENALTY).to(torch.float32)
+    return _stable_topl(ids, d + penalty, l_rerank)
 
 
 def _verify_core(qf: QueryFilter, query, top_ids, vecs, rl, rv, k: int,

@@ -31,7 +31,7 @@ class SynthFilteredDataset:
 
     def metadata(self, tag_field: str = "label",
                  num_field: str = "value") -> list[dict]:
-        """Per-record metadata dicts for the ``Index.build`` facade (a later slice of the port).
+        """Per-record metadata dicts for the ``Index.build`` facade.
 
         NOTE: Index.build renumbers tags by first appearance — resolve
         query labels through ``index.label_id(tag_field, value)`` (as

@@ -20,7 +20,7 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("hop_fused.cu", "or_scatter.cu", "prune_scan.cu")
+SOURCES = ("hop_fused.cu", "or_scatter.cu", "prune_scan.cu", "pq_scan.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -32,6 +32,8 @@ SIGNATURES = {
     "hop_fused_launch": [_P] * 12 + [_I] * 7 + [_P],
     "or_scatter_launch": [_P] * 3 + [_I] * 3 + [_P],
     "prune_scan_launch": [_P] * 3 + [_I, _I, ctypes.c_float, _I, _P],
+    "pq_scan_u8_launch": [_P] * 3 + [ctypes.c_longlong, _I, _I, _P],
+    "pq_scan_i32_launch": [_P] * 3 + [ctypes.c_longlong, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -5,20 +5,46 @@ The choice follows the device of the tensors handed in, never
 ``torch.cuda.is_available()``, and nothing falls back: a kernel that fails to
 build or launch raises. Each wrapper counts its kernel launches in
 ``LAUNCHES`` (one per launch, nowhere else), so a run can show that its path
-went through the kernels; :func:`reset_launches` zeroes the counts.
+went through the kernels; :func:`reset_launches` zeroes the counts and
+:func:`snapshot`/:func:`restore` read and put them back. The serving tier
+launches from its worker thread while callers may launch from theirs, so the
+counts are read and written only under a lock.
 """
 from __future__ import annotations
+
+import threading
 
 import torch
 
 from repro_torch.kernels import ref
 
-LAUNCHES = {"hop_fused": 0, "or_scatter": 0, "prune_scan": 0}
+LAUNCHES = {"hop_fused": 0, "or_scatter": 0, "prune_scan": 0, "pq_scan": 0}
+
+
+_count_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _count_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def snapshot() -> dict:
+    """A copy of the launch counts."""
+    with _count_lock:
+        return dict(LAUNCHES)
+
+
+def restore(counts: dict) -> None:
+    """Put back counts taken with :func:`snapshot`."""
+    with _count_lock:
+        LAUNCHES.update(counts)
+
+
+def _count(name: str) -> None:
+    with _count_lock:
+        LAUNCHES[name] += 1
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
@@ -78,7 +104,7 @@ def hop_fused(codes_slab, blooms, buckets, in_merged, table, scalars,
             scalars.data_ptr(), or_masks.data_ptr(), range_field.data_ptr(),
             bucket_lo.data_ptr(), bucket_hi.data_ptr(), key.data_ptr(),
             ok.data_ptr(), b, c, m, k, f, ql, nr, _stream(dev))
-    LAUNCHES["hop_fused"] += 1
+    _count("hop_fused")
     return key, ok
 
 
@@ -95,7 +121,7 @@ def or_scatter(words, slots):
     out = torch.empty_like(words)
     _launch("or_scatter_launch", words.data_ptr(), slots.data_ptr(),
             out.data_ptr(), b, nw, c, _stream(dev))
-    LAUNCHES["or_scatter"] += 1
+    _count("or_scatter")
     return out
 
 
@@ -112,5 +138,33 @@ def prune_scan(dp_s, dcc_s, a2: float, r: int):
     keep = torch.empty((b, c), dtype=torch.bool, device=dev)
     _launch("prune_scan_launch", dp_s.data_ptr(), dcc_s.data_ptr(),
             keep.data_ptr(), b, c, float(a2), int(r), _stream(dev))
-    LAUNCHES["prune_scan"] += 1
+    _count("prune_scan")
     return keep
+
+
+def pq_scan(codes, table):
+    """ADC distances of N code rows against one table: codes (N, M) uint8 or
+    int32, table (M, K) float32 -> (N,) float32; see ``ref.pq_scan_ref``.
+    N = 0 launches nothing."""
+    if not codes.is_cuda:
+        return ref.pq_scan_ref(codes, table)
+    dev = codes.device
+    n, m = codes.shape
+    k = table.shape[-1]
+    if codes.dtype not in (torch.uint8, torch.int32):
+        raise TypeError(f"codes: dtype {codes.dtype}, expected uint8 or "
+                        "int32")
+    _check("codes", codes, codes.dtype, (n, m), dev)
+    _check("table", table, torch.float32, (m, k), dev)
+    if m * k * 4 > 48 * 1024:
+        raise ValueError(f"pq_scan: table of {m}x{k} exceeds 48 KB of "
+                         "shared memory")
+    out = torch.empty((n,), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    fn = "pq_scan_u8_launch" if codes.dtype == torch.uint8 \
+        else "pq_scan_i32_launch"
+    _launch(fn, codes.data_ptr(), table.data_ptr(), out.data_ptr(), n, m, k,
+            _stream(dev))
+    _count("pq_scan")
+    return out

@@ -79,6 +79,18 @@ def adc_slab_ref(codes_slab: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return d.reshape(lead + (c,))
 
 
+def pq_scan_ref(codes: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """ADC distances of every code row against one table: codes (N, M)
+    uint8/int32, table (M, K) float32 -> (N,) float32, sum_m
+    table[m, codes[n, m]] added left to right (``repro.kernels.ref``'s
+    ``pq_scan_ref``). A code is read as XLA's gather reads it there: a
+    negative code wraps once (+K), then it is clamped to [0, K-1]."""
+    k = table.shape[-1]
+    c = codes.long()
+    c = torch.where(c < 0, c + k, c).clamp(0, k - 1)
+    return adc_slab_ref(c, table)
+
+
 def hop_fused_ref(codes_slab, blooms, buckets, in_merged, table, scalars,
                   or_masks, range_field, bucket_lo, bucket_hi):
     """Fused per-hop candidate pass over a pre-gathered (B, C) slab.

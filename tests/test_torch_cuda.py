@@ -68,12 +68,43 @@ def test_prune_scan_cuda_matches_plain(cuda, c, alpha):
     assert torch.equal(got.cpu(), tops.prune_scan(dp, dcc, alpha * alpha, 32))
 
 
+@pytest.mark.parametrize("n,m,k,dtype", [(1000, 16, 256, np.uint8),
+                                         (700, 32, 16, np.int32),
+                                         (1000, 16, 256, np.int32),
+                                         (33, 5, 256, np.uint8)])
+def test_pq_scan_cuda_matches_plain(cuda, n, m, k, dtype):
+    """Bit-identical to the plain version, on the 16-byte load path
+    (M=16 uint8, M=32 int32 and M=16 int32 rows) and the byte path
+    (M=5), and on codes out of range."""
+    rng = np.random.default_rng(n + m)
+    codes = torch.from_numpy(rng.integers(0, k, (n, m)).astype(dtype))
+    table = torch.from_numpy(rng.normal(0, 1, (m, k)).astype(np.float32))
+    got = tops.pq_scan(codes.to(cuda), table.to(cuda))
+    torch.cuda.synchronize()
+    want = tops.pq_scan(codes, table)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    if dtype == np.int32:
+        bad = torch.from_numpy(rng.integers(-2 * k, 2 * k, (n, m))
+                               .astype(np.int32))
+        got = tops.pq_scan(bad.to(cuda), table.to(cuda))
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu().view(torch.int32),
+                           tops.pq_scan(bad, table).view(torch.int32))
+
+
 def test_cuda_wrappers_count_and_check(cuda):
     tops.reset_launches()
     words = torch.zeros((2, 4), dtype=torch.int32, device=cuda)
     tops.or_scatter(words, torch.zeros((2, 3), dtype=torch.int32,
                                        device=cuda))
     assert tops.LAUNCHES["or_scatter"] == 1
+    tops.pq_scan(torch.zeros((3, 16), dtype=torch.uint8, device=cuda),
+                 torch.zeros((16, 256), dtype=torch.float32, device=cuda))
+    assert tops.LAUNCHES["pq_scan"] == 1
+    with pytest.raises(ValueError, match="48 KB"):
+        tops.pq_scan(torch.zeros((3, 64), dtype=torch.uint8, device=cuda),
+                     torch.zeros((64, 256), dtype=torch.float32,
+                                 device=cuda))
     with pytest.raises(TypeError):
         tops.or_scatter(words.long(), torch.zeros((2, 3), dtype=torch.int32,
                                                   device=cuda))

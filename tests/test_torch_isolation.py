@@ -56,7 +56,12 @@ def test_port_imports_no_jax_no_repro():
                 "repro_torch.core.labels", "repro_torch.core.ranges",
                 "repro_torch.core.bloom", "repro_torch.core.io_sim",
                 "repro_torch.data.synth", "repro_torch.kernels.ref",
-                "repro_torch.kernels.ops", "repro_torch.kernels.build"}
+                "repro_torch.kernels.ops", "repro_torch.kernels.build",
+                "repro_torch.api", "repro_torch.api.filters",
+                "repro_torch.api.index", "repro_torch.api.schema",
+                "repro_torch.api.session", "repro_torch.api.types",
+                "repro_torch.serve", "repro_torch.serve.server",
+                "repro_torch.serve.retrieval"}
     assert expected <= set(res["modules"]), expected - set(res["modules"])
 
 

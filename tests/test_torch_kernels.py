@@ -144,6 +144,67 @@ def test_prune_scan_respects_cap():
 
 
 # ---------------------------------------------------------------------------
+# pq_scan
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [1, 5, 128, 700, 1024])
+@pytest.mark.parametrize("m,k", [(8, 256), (16, 256), (32, 16)])
+@pytest.mark.parametrize("codes_dtype", [np.uint8, np.int32])
+def test_pq_scan_matches_repro(n, m, k, codes_dtype):
+    """tests/test_kernels.py's grid: the plain version equals ``repro``'s
+    jnp reference and its Pallas kernel in interpret mode bit for bit (all
+    three add m left to right; no case of this grid needed that file's
+    rtol=1e-6, atol=1e-5)."""
+    from repro.kernels.pq_scan import pq_scan
+    rng = np.random.default_rng(n * m + k)
+    codes = rng.integers(0, k, (n, m)).astype(codes_dtype)
+    table = rng.normal(0, 1, (m, k)).astype(np.float32)
+    got = tops.pq_scan(torch.from_numpy(codes), torch.from_numpy(table))
+    assert got.dtype == torch.float32 and got.shape == (n,)
+    got = got.numpy()
+    want_r = np.asarray(jref.pq_scan_ref(jnp.asarray(codes),
+                                         jnp.asarray(table)))
+    want_i = np.asarray(pq_scan(jnp.asarray(codes), jnp.asarray(table),
+                                interpret=True, tile_n=256))
+    np.testing.assert_array_equal(got.view(np.int32), want_r.view(np.int32))
+    np.testing.assert_array_equal(got.view(np.int32), want_i.view(np.int32))
+
+
+def test_pq_scan_out_of_range_codes_match_repro():
+    """Codes outside [0, K) read as XLA's gather reads them in ``repro``'s
+    reference: a negative code wraps once, then it is clamped."""
+    rng = np.random.default_rng(4)
+    k = 16
+    codes = rng.integers(-3 * k, 3 * k, (64, 8)).astype(np.int32)
+    table = rng.normal(0, 1, (8, k)).astype(np.float32)
+    got = tops.pq_scan(torch.from_numpy(codes), torch.from_numpy(table))
+    want = np.asarray(jref.pq_scan_ref(jnp.asarray(codes),
+                                       jnp.asarray(table)))
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  want.view(np.int32))
+
+
+def test_pq_scan_equals_adc_lookup():
+    """The pre route's ADC distances: ``pq.adc_lookup`` of gathered code
+    rows equals ``pq_scan`` on them (same function, same bits), and
+    ``repro``'s ``pq.adc_lookup`` too."""
+    from repro.core import pq as jpq
+    from repro_torch.core import pq as tpq
+    rng = np.random.default_rng(9)
+    codes = rng.integers(0, 256, (300, 16)).astype(np.uint8)
+    table = (rng.normal(0, 1, (16, 256)) ** 2).astype(np.float32)
+    got = tops.pq_scan(torch.from_numpy(codes), torch.from_numpy(table))
+    np.testing.assert_array_equal(
+        got.numpy().view(np.int32),
+        tpq.adc_lookup(torch.from_numpy(codes),
+                       torch.from_numpy(table)).numpy().view(np.int32))
+    np.testing.assert_array_equal(
+        got.numpy().view(np.int32),
+        np.asarray(jpq.adc_lookup(jnp.asarray(codes),
+                                  jnp.asarray(table))).view(np.int32))
+
+
+# ---------------------------------------------------------------------------
 # dispatch
 # ---------------------------------------------------------------------------
 
@@ -156,5 +217,23 @@ def test_cpu_dispatch_counts_no_launch():
                     torch.zeros((1, 3), dtype=torch.int32))
     dp, dcc = prune_inputs(rng, 2, 8)
     tops.prune_scan(torch.from_numpy(dp), torch.from_numpy(dcc), 1.0, 4)
+    tops.pq_scan(torch.zeros((5, 4), dtype=torch.uint8),
+                 torch.zeros((4, 16), dtype=torch.float32))
     assert tops.LAUNCHES == {"hop_fused": 0, "or_scatter": 0,
-                             "prune_scan": 0}
+                             "prune_scan": 0, "pq_scan": 0}
+
+
+def test_launch_snapshot_restore():
+    """``snapshot`` copies the counts and ``restore`` puts them back, so a
+    caller can leave launches out of a run's counts."""
+    tops.reset_launches()
+    tops._count("pq_scan")
+    saved = tops.snapshot()
+    assert saved == {"hop_fused": 0, "or_scatter": 0, "prune_scan": 0,
+                     "pq_scan": 1}
+    tops._count("pq_scan")
+    tops._count("hop_fused")
+    assert saved["pq_scan"] == 1            # a copy, not a view
+    tops.restore(saved)
+    assert tops.LAUNCHES == saved
+    tops.reset_launches()

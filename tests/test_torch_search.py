@@ -179,7 +179,8 @@ def test_results_valid_and_recall(shared_ds, port):
     assert np.mean(rec) >= 0.9, np.mean(rec)
 
 
-def test_out_of_scope_paths_raise(port):
+def test_out_of_scope_paths_raise(port, tmp_path):
+    from repro_torch import api as tapi
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port.insert(None, None, None, 0, None)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -187,6 +188,17 @@ def test_out_of_scope_paths_raise(port):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port.shard(2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.approx_scan(None, [], [])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         tsearch.SearchParams(l_search=8, fault_plan=object())
+    idx = tapi.Index(port, {}, tapi.Schema())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        idx.save(str(tmp_path / "idx"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tapi.Index.load(str(tmp_path / "idx"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        idx.insert(np.zeros((1, 4), np.float32), [{}])
+    vecs = np.zeros((4, 8), np.float32)
+    meta = [{"cat": 1}] * 4
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tapi.Index.build(vecs, meta, store="disk", device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tapi.Index.build(vecs, meta, shards=2, device="cpu")

@@ -11,9 +11,22 @@ import torch
 torch.set_num_threads(1)
 
 
-def repro_arrays(e, ds) -> dict:
+def repro_arrays(e, ds=None) -> dict:
     """A ``repro`` engine's state in the layout of
-    ``repro_torch.core.engine.FilteredANNEngine.from_arrays``."""
+    ``repro_torch.core.engine.FilteredANNEngine.from_arrays``. The raw
+    label and value arrays come from the dataset ``ds``, or from the
+    engine's own label and range stores when there is none."""
+    if ds is None:
+        ls = e.label_store
+        raw = {"label_offsets": np.asarray(ls.vec_offsets),
+               "label_flat": np.asarray(ls.vec_labels),
+               "n_labels": int(ls.n_labels),
+               "values": np.asarray(e.range_store.values)}
+    else:
+        raw = {"label_offsets": np.asarray(ds.label_offsets),
+               "label_flat": np.asarray(ds.label_flat),
+               "n_labels": int(ds.n_labels),
+               "values": np.asarray(ds.values)}
     s = e.store
     return {
         "vectors": np.asarray(s.vectors),
@@ -26,22 +39,33 @@ def repro_arrays(e, ds) -> dict:
         "medoid": int(e.medoid),
         "blooms": np.asarray(e.mem.blooms),
         "bucket_codes": np.asarray(e.mem.bucket_codes),
-        "label_offsets": np.asarray(ds.label_offsets),
-        "label_flat": np.asarray(ds.label_flat),
-        "n_labels": int(ds.n_labels),
-        "values": np.asarray(ds.values),
+        **raw,
     }
 
 
-def port_engine(e, ds):
+def _port_config(cls, cfg):
+    """A port config dataclass with the fields of ``repro``'s ``cfg``."""
+    import dataclasses
+    return cls(**{f.name: getattr(cfg, f.name)
+                  for f in dataclasses.fields(cls)})
+
+
+def port_engine(e, ds=None):
     """The port's engine on the CPU over the same graph, codebook and
     attributes as the ``repro`` engine ``e``."""
     from repro_torch.core import engine as teng
-    cfg = teng.IndexConfig(**{f: getattr(e.config, f) for f in (
-        "r", "r_dense", "l_build", "alpha", "pq_m", "pq_iters", "max_labels",
-        "ql", "qr", "cap", "seed")})
-    return teng.FilteredANNEngine.from_arrays(repro_arrays(e, ds), cfg,
-                                              device="cpu")
+    return teng.FilteredANNEngine.from_arrays(
+        repro_arrays(e, ds), _port_config(teng.IndexConfig, e.config),
+        device="cpu")
+
+
+def port_index(idx):
+    """The port's ``Index`` on the CPU over the state of ``repro``'s Index
+    ``idx``: its engine's arrays, vocabulary, schema and defaults."""
+    from repro_torch import api as tapi
+    schema = tapi.Schema(tags=idx.schema.tags, nums=idx.schema.nums)
+    return tapi.Index(port_engine(idx.engine), dict(idx.vocab), schema,
+                      _port_config(tapi.SearchConfig, idx.defaults))
 
 
 # --- seeded kernel inputs (the generators of tests/test_kernels.py) ---
