@@ -38,12 +38,33 @@ Phases, each printing one JSON line:
    against brute force on the card) and 8 of them against a CPU copy of the
    engine. Launch counts are zeroed just before the warmup and read just
    after the scan batch.
+6. ops — ``kernels.ops.approx_probe`` and ``ops.l2_rerank`` (the
+   counterparts of ``repro.kernels.ops``) over the whole corpus for each of
+   the 64 phase-4 queries: the probe, with a param block built from the
+   port's Bloom masks and bucket bounds, equals its plain version and
+   admits every record that exact membership admits; the re-rank's top 10
+   equals brute force's up to
+   exact-distance ties. Launch counts are zeroed just before and read just
+   after.
+7. lifecycle — the phase-5 ``Index`` is saved under ``build/`` (free and
+   written bytes, seconds), loaded back on the card (the label batch
+   answers equal), grows by 10,000 inserted records (ids contiguous from N,
+   ``prune_scan`` launched), and serves the label batch under the fault
+   plan ``rate=0.1,seed=7`` (faults, retries, degraded, recall against the
+   clean batch; every id of an undegraded query passes exact membership).
+
+Phase 2 also covers approx_probe and l2_rerank (the latter against its
+plain version within rtol=1e-5, atol=1e-5·max(|v|²+|q|²), and with
+``torch.cdist(vecs, q[None]).square()`` timed as its yardstick); phase 3
+also inserts the same batch on the card and on the CPU copy, runs the
+fault plan on both and saves on the card to load on the CPU.
 
 Then a ``kernels`` line (launches of hop_fused, or_scatter and prune_scan
-from phase 4, of pq_scan from phase 5; times from phase 2), the card's name
-and power limit as ``nvidia-smi`` prints them, and last the result line. It
-exits non-zero, printing no result, when there is no CUDA device or the
-port's sources are missing; any failed check raises.
+from phase 4, of pq_scan from phase 5, of approx_probe and l2_rerank from
+phase 6; times from phase 2), the card's name and power limit as
+``nvidia-smi`` prints them, and last the result line. It exits non-zero,
+printing no result, when there is no CUDA device or the port's sources are
+missing; any failed check raises.
 """
 from __future__ import annotations
 
@@ -67,11 +88,12 @@ FULL_N = 1_000_000
 MIN_N = 250_000
 TIME_LIMIT_S = 1200.0           # the smoke's limit, kernel builds included
 MARGIN_S = 150.0
-# seconds of the full-size and serving phases per corpus row, scaled
-# linearly: at N=1M on an NVIDIA H100 80GB HBM3 at 700 W the full-size
-# phase took 281-394 s and the serving phase 46-56 s; host time varies by
-# up to 40% between machines
-FULL_S_PER_ROW = 600.0 / 1_000_000
+# seconds of the full-size, serving, ops and lifecycle phases per corpus
+# row, scaled linearly: at N=1M on an NVIDIA H100 80GB HBM3 at 700 W the
+# full-size phase took 281-394 s and the serving phase 46-56 s; the ops and
+# lifecycle phases add ~150 s; host time varies by up to 40% between
+# machines
+FULL_S_PER_ROW = 750.0 / 1_000_000
 
 
 def emit(obj: dict) -> None:
@@ -253,6 +275,60 @@ def kernel_phase(dev) -> dict:
         row["library_ms"], row["library_call_ms"] = time_ms(library)
         row["library_max_abs_err"] = float((lib - want).abs().max())
         out[f"pq_scan/{tag}"] = row
+
+    # approx_probe: kernels_bench's shape (100,000 candidates) and the whole
+    # full-size corpus (1M), uint8 buckets, QL=8; bytes: 4 (word) + 1
+    # (bucket) + 1 (output) per row
+    for tag, n in (("100k", 100_000), ("1M", 1_000_000)):
+        blooms = torch.from_numpy(rng.integers(
+            0, 2 ** 32, n, dtype=np.int64).astype(np.uint32)
+            .view(np.int32)).to(dev)
+        buckets = torch.from_numpy(
+            rng.integers(0, 256, n).astype(np.uint8)).to(dev)
+        or_masks = torch.from_numpy(
+            rng.integers(0, 2 ** 16, 8).astype(np.int32)).to(dev)
+        params = torch.tensor([0b1010, 8, 50, 200, 2, 1, 1, 0],
+                              dtype=torch.int32, device=dev)
+        pargs = (blooms, buckets, or_masks, params)
+        got = ops.approx_probe(*pargs)
+        want = ref.approx_probe_ref(*pargs)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"approx_probe ({tag}) differs"
+        bms, by = bound(6 * n + 8 * 4 + 8 * 4, 32 * n)
+        out[f"approx_probe/{tag}"] = timed(
+            lambda: ops.approx_probe(*pargs),
+            lambda: ref.approx_probe_ref(*pargs), shape=[n, 8],
+            admitted=float(got.float().mean()),
+            max_abs_err=float((got.int() - want.int()).abs().max()),
+            bound_ms=bms, bound_by=by, library_ms=None)
+
+    # l2_rerank: kernels_bench's shape (4,096, 128) and one query against
+    # the whole full-size corpus (1M, 192); 4·D flops per row
+    for tag, (b, d) in (("4096x128", (4096, 128)),
+                        ("1Mx192", (1_000_000, 192))):
+        vecs = torch.from_numpy(
+            rng.normal(0, 1, (b, d)).astype(np.float32)).to(dev)
+        q = torch.from_numpy(rng.normal(0, 1, d).astype(np.float32)).to(dev)
+        got = ops.l2_rerank(vecs, q)
+        want = ref.l2_rerank_ref(vecs, q)
+        torch.cuda.synchronize()
+        scale = float(((vecs * vecs).sum(1) + (q * q).sum()).max())
+        err = (got - want).abs()
+        assert bool((err <= 1e-5 * want.abs() + 1e-5 * scale).all()), \
+            f"l2_rerank ({tag}): max abs err {float(err.max())}"
+
+        def library():
+            return torch.cdist(vecs, q[None]).square()
+
+        lib = library()[:, 0]
+        bms, by = bound(b * d * 4 + d * 4 + b * 4, 4 * b * d)
+        row = timed(lambda: ops.l2_rerank(vecs, q),
+                    lambda: ref.l2_rerank_ref(vecs, q), shape=[b, d],
+                    max_abs_err=float(err.max()), tolerance_scale=scale,
+                    bound_ms=bms, bound_by=by)
+        row["library_ms"], row["library_call_ms"] = time_ms(library)
+        row["library_max_abs_err"] = float((lib - want).abs().max())
+        out[f"l2_rerank/{tag}"] = row
     return {"build_s": build_s, "results": out}
 
 
@@ -271,20 +347,32 @@ def dsl_request(api, ds, i: int, kind: str, tag_field: str):
     return api.SearchRequest(query=ds.queries[i], filter=filt)
 
 
+def _answer(x):
+    """``(ids, dists, stats)`` of an engine's answer, or of an ``Index``'s
+    ``(results, QueryStats)``."""
+    if len(x) == 3:
+        return x
+    results, stats = x
+    return [r.ids for r in results], [r.dists for r in results], stats
+
+
 def compare_results(label, got, want) -> None:
-    """Two ``(results, QueryStats)`` of the same requests: routes, ids and
-    integer counters equal, distances allclose."""
+    """Two answers to the same requests, each an ``Index``'s ``(results,
+    QueryStats)`` or an engine's ``(ids, dists, stats)``: routes, ids and
+    integer counters (fault counters included) equal, distances
+    allclose."""
     import numpy as np
-    (rg, sg), (rc, sc) = got, want
+    (ig, dg, sg), (ic, dc, sc) = _answer(got), _answer(want)
     assert sg.mechanism == sc.mechanism, f"{label}: routes differ"
     for f in ("io_pages", "hops", "explored", "dist_comps", "n_valid",
-              "fp_explored", "degraded"):
+              "fp_explored", "faults", "retries", "degraded"):
         assert np.array_equal(getattr(sg, f), getattr(sc, f)), \
             f"{label}: {f} differs"
-    for a, b in zip(rg, rc):
-        assert np.array_equal(a.ids, b.ids), f"{label}: ids differ"
-        assert np.allclose(a.dists, b.dists, rtol=1e-6, atol=1e-6), \
-            f"{label}: dists"
+    assert len(ig) == len(ic), f"{label}: batch sizes differ"
+    for a, b in zip(ig, ic):
+        assert np.array_equal(a, b), f"{label}: ids differ"
+    for a, b in zip(dg, dc):
+        assert np.allclose(a, b, rtol=1e-6, atol=1e-6), f"{label}: dists"
 
 
 # ---------------------------------------------------------------------------
@@ -318,14 +406,8 @@ def card_vs_cpu_phase(dev) -> dict:
             sels = make_selectors(ds, e, wl)
             res.append(e.search(ds.queries, sels,
                                 eng.SearchConfig(policy="speculative")))
-        (ig, dg, sg), (ic, dc, sc) = res
-        assert sg.mechanism == sc.mechanism, f"{wl}: routes differ"
-        assert np.array_equal(ig, ic), f"{wl}: ids differ"
-        for f in ("io_pages", "hops", "explored", "dist_comps", "n_valid",
-                  "fp_explored"):
-            assert np.array_equal(getattr(sg, f), getattr(sc, f)), \
-                f"{wl}: {f} differs"
-        assert np.allclose(dg, dc, rtol=1e-6, atol=1e-6), f"{wl}: dists"
+        compare_results(wl, res[0], res[1])
+        sg = res[0][2]
         mix = {m: sg.mechanism.count(m) for m in sorted(set(sg.mechanism))}
         out["workloads"][wl] = {"mechanisms": mix, "equal": True}
 
@@ -349,6 +431,71 @@ def card_vs_cpu_phase(dev) -> dict:
             mech = got[1].mechanism
             out["index"][f"{call}/{kind}"] = {
                 m: mech.count(m) for m in sorted(set(mech))}
+    out["lifecycle"] = small_lifecycle(api, ds, gidx, cidx)
+    return out
+
+
+def small_lifecycle(api, ds, gidx, cidx) -> dict:
+    """The index lifecycle on the test corpus, card against CPU: the same
+    insert on both (arrays and answers equal), the label / range / hybrid
+    requests under the fault plan ``rate=0.1,seed=7`` (answers and fault
+    counters equal), then a save on the card and a load on the CPU (the
+    loaded index answers as the card's)."""
+    import shutil
+    import numpy as np
+    from repro_torch.core.faults import parse_plan
+    from repro_torch.data.synth import make_filtered_dataset
+
+    out = {}
+    extra = make_filtered_dataset(n=1500, d=32, n_queries=4, n_labels=60,
+                                  seed=3)
+    meta = extra.metadata()
+    t0 = time.perf_counter()
+    ids = gidx.insert(extra.vectors, meta)
+    out["insert_s"] = time.perf_counter() - t0
+    assert np.array_equal(ids, cidx.insert(extra.vectors, meta)), \
+        "insert: ids differ"
+    assert ids.tolist() == list(range(6000, 7500)), "insert: ids"
+    ga, ca = gidx.engine.arrays(), cidx.engine.arrays()
+    for k in ga:
+        assert np.array_equal(ga[k], ca[k]), f"insert: {k} differs"
+    out["capacity"] = int(gidx.engine.store.vectors.shape[0])
+    plan = parse_plan("rate=0.1,seed=7")
+    faults = {"faults": 0, "retries": 0, "degraded": 0}
+    for kind in ("label", "range", "hybrid"):
+        reqs = [dsl_request(api, ds, i, kind, "label")
+                for i in range(ds.queries.shape[0])]
+        got = gidx.search_batch(reqs, with_stats=True)
+        compare_results(f"after insert {kind}", got,
+                        cidx.search_batch(reqs, with_stats=True))
+        scfgs = [dataclasses.replace(gidx.defaults, fault_plan=plan)] \
+            * len(reqs)
+        got = gidx.search_batch(reqs, with_stats=True, scfgs=scfgs)
+        want = cidx.search_batch(reqs, with_stats=True, scfgs=scfgs)
+        compare_results(f"fault plan {kind}", got, want)
+        for f in faults:
+            faults[f] += int(getattr(got[1], f).sum())
+    assert faults["faults"] > 0, "the fault plan drew no fault"
+    out["fault_plan"] = {"plan": "rate=0.1,seed=7", **faults}
+
+    path = ROOT / "build" / "smoke_ckpt_small"
+    shutil.rmtree(path, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        gidx.save(str(path))
+        out["save_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lidx = api.Index.load(str(path), device="cpu")
+        out["load_cpu_s"] = time.perf_counter() - t0
+        for kind in ("label", "range", "hybrid"):
+            reqs = [dsl_request(api, ds, i, kind, "label")
+                    for i in range(ds.queries.shape[0])]
+            compare_results(f"saved on the card, loaded on the CPU {kind}",
+                            gidx.search_batch(reqs, with_stats=True),
+                            lidx.search_batch(reqs, with_stats=True))
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    out["equal"] = True
     return out
 
 
@@ -461,7 +608,7 @@ def hop_profile(e, ds, cfg, hops: int = 32) -> dict:
     mc = search._mc(e.mem, ctx, sp)
     rec = search._issue(e.store, st)
     n_ops = torch_ops(lambda: search._issue(e.store, search._hop_step(
-        e.store, e.codes, sp, ctx, mc, st, rec)))
+        e.store, e.codes, e.mem, sp, ctx, mc, st, rec)))
     torch.cuda.synchronize(e.device)
     t0 = time.perf_counter()
     search.run_hops(e.store, e.codes, e.mem, ctx, st, hops, sp)
@@ -541,35 +688,41 @@ def full_phase(dev, n: int):
 # phase 5: serving on the full-size engine
 # ---------------------------------------------------------------------------
 
-def _check_members(index, reqs, results) -> int:
-    """Exact membership of every returned id; returns how many were
-    checked."""
+def _check_members(label, e, sels, id_rows) -> int:
+    """Exact membership of every id in ``id_rows[i]`` under the compiled
+    filter ``sels[i]`` (anything with ``.plan``, as ``Index.compile_filter``
+    or ``make_selectors`` returns); returns how many ids were checked."""
     import numpy as np
     import torch
     from repro_torch.core import engine as eng
     from repro_torch.core.selectors import filter_to_device, stack_filters
 
-    e, cfg = index.engine, index.config
-    s = e.store
+    cfg, s = e.config, e.store
     n = 0
-    for r, res in zip(reqs, results):
-        got = res.ids[res.ids >= 0]
+    for i, (sel, ids) in enumerate(zip(sels, id_rows)):
+        got = ids[ids >= 0]
         if not got.size:
             continue
-        qf = index.compile_filter(r.filter).plan(cfg.ql, cfg.cap,
-                                                 cfg.qr).qfilter
+        qf = sel.plan(cfg.ql, cfg.cap, cfg.qr).qfilter
         g = torch.from_numpy(got.astype(np.int64)).to(e.device)
         ok = eng.is_member(filter_to_device(stack_filters([qf]), e.device),
                            s.rec_labels[g][None], s.rec_values[g][None])
-        assert bool(ok.all()), "a served request returned an invalid id"
+        assert bool(ok.all()), f"{label}: request {i} returned an invalid id"
         n += int(got.size)
     return n
 
 
-def serve_phase(e, ds, dev) -> dict:
+def _check_served(label, index, reqs, results) -> int:
+    """:func:`_check_members` of an ``Index``'s requests and results."""
+    return _check_members(label, index.engine,
+                          [index.compile_filter(r.filter) for r in reqs],
+                          [res.ids for res in results])
+
+
+def serve_phase(e, ds, dev):
     """The phase-4 engine behind ``Index`` and ``SearchServer``. The launch
     counts cover the warmup, the calibration, the burst and the scan batch;
-    they are returned under ``launches``."""
+    they are returned under ``launches``. Returns ``(out, index)``."""
     import numpy as np
     import torch
     from repro_torch import api
@@ -650,8 +803,8 @@ def serve_phase(e, ds, dev) -> dict:
             "mechanisms": dict(collections.Counter(
                 res.stats.mechanism for _, _, res in served)),
             "p50_ms": st.p50_us / 1e3, "p99_ms": st.p99_us / 1e3,
-            "verified_ids": _check_members(
-                index, [r for r, _, _ in served],
+            "verified_ids": _check_served(
+                "served burst", index, [r for r, _, _ in served],
                 [res for _, _, res in served]),
         }
         rec = []
@@ -671,7 +824,8 @@ def serve_phase(e, ds, dev) -> dict:
                 kind: float(np.mean(rec[j::3])) for j, kind in
                 enumerate(kinds)},
             "rerank": int(scan_st.explored[0]),
-            "verified_ids": _check_members(index, scan_reqs, scan_res),
+            "verified_ids": _check_served("scan rung", index, scan_reqs,
+                                          scan_res),
         }
         # how far ADC ranking alone carries the scan rung: the share of each
         # query's exact unfiltered top-k inside its ADC top-rerank
@@ -703,6 +857,241 @@ def serve_phase(e, ds, dev) -> dict:
             for f in dataclasses.fields(eng.QueryStats)}))
         compare_results("approx_scan card vs CPU", first8, cpu_res)
         out["scan"]["card_equals_cpu_on"] = 8
+    return out, index
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the ops entry points on the full-size corpus
+# ---------------------------------------------------------------------------
+
+PHASE4_KINDS = ("label", "range", "hybrid")    # the single-field filters
+
+
+def exact_mask(e, sel):
+    """Exact membership of every record under one selector, on the card."""
+    import torch
+    from repro_torch.core import engine as eng
+    from repro_torch.core.selectors import filter_to_device, stack_filters
+
+    cfg, s = e.config, e.store
+    qf = filter_to_device(stack_filters(
+        [sel.plan(cfg.ql, cfg.cap, cfg.qr).qfilter]), e.device)
+    parts = [eng.is_member(qf, s.rec_labels[None, a:a + eng.BRUTE_CHUNK],
+                           s.rec_values[None, a:a + eng.BRUTE_CHUNK])[0]
+             for a in range(0, e.n, eng.BRUTE_CHUNK)]
+    return torch.cat(parts)
+
+
+def probe_params(e, ds, i: int, kind: str):
+    """``(or_masks, params)`` of ``ops.approx_probe`` for query ``i`` under
+    a single-field filter, from the port's Bloom masks
+    (``bloom.label_bits``) and the value field's bucket bounds."""
+    import numpy as np
+    import torch
+    from repro_torch.core import bloom
+
+    labels = np.asarray(ds.query_labels[i])
+    labels = labels[labels >= 0]
+    lo, hi = float(ds.query_ranges[i, 0]), float(ds.query_ranges[i, 1])
+    blo, bhi = e.range_store.field_store(0).bucket_range(lo, hi)
+    k_hashes = e.label_store.k_hashes
+    or_masks = np.zeros(8, np.uint32)
+    if kind == "label":            # its first label, as make_selectors
+        prm = [int(bloom.label_bits(labels[0], k_hashes)), 0, 0, 255, 1, 0,
+               0, 0]
+    elif kind == "range":
+        prm = [0, 0, blo, bhi, 0, 1, 0, 0]
+    else:                          # any of its labels OR the range
+        assert labels.size <= 8, "more query labels than OR masks"
+        or_masks[:labels.size] = bloom.label_bits(labels, k_hashes)
+        prm = [0, int(labels.size), blo, bhi, 2, 1, 1, 0]
+    prm = np.array(prm, np.int64).astype(np.uint32).view(np.int32)
+    return (torch.from_numpy(or_masks.view(np.int32)).to(e.device),
+            torch.from_numpy(prm).to(e.device))
+
+
+def ops_phase(e, ds) -> dict:
+    """``ops.approx_probe`` and ``ops.l2_rerank`` over the whole full-size
+    corpus for each of the 64 phase-4 queries: the probe equals its plain
+    version on every query (the AND-label, range and hybrid param blocks)
+    and admits every record that exact membership admits (no false
+    negatives), and the re-rank's top
+    10 equals brute force's unfiltered top 10 up to exact-distance ties
+    within the tolerance. The launch counts cover the probe and re-rank
+    calls only; they are returned under ``launches``."""
+    import numpy as np
+    import torch
+    from repro_torch.data.synth import make_selectors
+    from repro_torch.kernels import ops, ref
+
+    nq = ds.queries.shape[0]
+    sels = {kind: make_selectors(ds, e, kind) for kind in PHASE4_KINDS}
+    blooms = e.mem.blooms[:e.n]
+    buckets = e.mem.bucket_codes[:e.n, 0].contiguous()
+    vecs = e.store.vectors[:e.n]
+    norms = (vecs * vecs).sum(1)
+    ops.reset_launches()
+    admitted = {kind: [] for kind in PHASE4_KINDS}
+    exact_share = {kind: [] for kind in PHASE4_KINDS}
+    top_equal, ties = 0, 0
+    t_probe = t_rerank = 0.0
+    for i in range(nq):
+        kind = PHASE4_KINDS[i % 3]
+        or_masks, params = probe_params(e, ds, i, kind)
+        torch.cuda.synchronize(e.device)
+        t0 = time.perf_counter()
+        ok = ops.approx_probe(blooms, buckets, or_masks, params)
+        torch.cuda.synchronize(e.device)
+        t_probe += time.perf_counter() - t0
+        q = torch.from_numpy(ds.queries[i]).to(e.device)
+        t0 = time.perf_counter()
+        d = ops.l2_rerank(vecs, q)
+        top = torch.topk(d, 10, largest=False).indices
+        torch.cuda.synchronize(e.device)
+        t_rerank += time.perf_counter() - t0
+        with uncounted():
+            assert torch.equal(ok, ref.approx_probe_ref(
+                blooms, buckets, or_masks, params)), \
+                f"approx_probe: query {i} ({kind}) differs from the plain " \
+                "version"
+            exact = exact_mask(e, sels[kind][i])
+            assert not bool((exact & ~ok).any()), \
+                f"approx_probe: a false negative on query {i} ({kind})"
+            admitted[kind].append(float(ok.float().mean()))
+            exact_share[kind].append(float(exact.float().mean()))
+            # brute force in the other form, sum((v - q)^2)
+            ex = ((vecs - q) ** 2).sum(1)
+            gt = torch.topk(ex, 10, largest=False)
+            tol = 1e-5 * float(norms.max() + (q * q).sum())
+            worst = float(ex[top].max())
+            assert worst <= float(gt.values[-1]) + tol, \
+                f"l2_rerank: query {i} top 10 differs beyond ties"
+            same = set(top.tolist()) == set(gt.indices.tolist())
+            top_equal += int(same)
+            ties += int(not same)
+    launches = ops.snapshot()
+    assert launches["approx_probe"] == nq and launches["l2_rerank"] == nq
+    return {
+        "queries": nq, "n": e.n, "launches": launches,
+        "probe_admitted_share": {k: float(np.mean(v))
+                                 for k, v in admitted.items()},
+        "exact_share": {k: float(np.mean(v)) for k, v in exact_share.items()},
+        "probe_false_negatives": 0,
+        "rerank_top10_equal": top_equal, "rerank_top10_within_ties": ties,
+        "probe_call_ms": t_probe / nq * 1e3,
+        "rerank_topk_call_ms": t_rerank / nq * 1e3,
+    }
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the index lifecycle at full size
+# ---------------------------------------------------------------------------
+
+def _label_batch(e, ds, scfg):
+    """The phase-4 label workload through ``engine.search``."""
+    from repro_torch.data.synth import make_selectors
+    sels = make_selectors(ds, e, "label")
+    return sels, e.search(ds.queries, sels, scfg)
+
+
+def lifecycle_phase(index, ds, dev) -> dict:
+    """Save the phase-5 ``Index`` under ``build/`` and load it back on the
+    card (the label batch answers equal), insert 10,000 records, and run
+    the label batch under the fault plan ``rate=0.1,seed=7``: every id a
+    query with ``degraded == 0`` returns passes exact membership. The
+    checkpoint directory is deleted at the end. Launch counts of the insert
+    are returned under ``insert_launches``."""
+    import os
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch.core import engine as eng
+    from repro_torch.core.faults import parse_plan
+    from repro_torch.data.synth import make_filtered_dataset
+    from repro_torch.kernels import ops
+
+    out = {}
+    e = index.engine
+    n0 = e.n
+    scfg = eng.SearchConfig()
+    path = ROOT / "build" / "smoke_ckpt"
+    shutil.rmtree(path, ignore_errors=True)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    out["disk_free_bytes"] = shutil.disk_usage(path.parent).free
+    emit({"phase": "lifecycle_start",
+          "disk_free_bytes": out["disk_free_bytes"]})
+    try:
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        index.save(str(path))
+        out["save_s"] = time.perf_counter() - t0
+        out["saved_bytes"] = sum(
+            os.path.getsize(os.path.join(r, f))
+            for r, _, fs in os.walk(path) for f in fs)
+        t0 = time.perf_counter()
+        loaded = api.Index.load(str(path), device=dev)
+        torch.cuda.synchronize(dev)
+        out["load_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    assert len(loaded) == n0
+    _, clean_saved = _label_batch(e, ds, scfg)
+    compare_results("loaded vs saved", clean_saved,
+                _label_batch(loaded.engine, ds, scfg)[1])
+    out["loaded_answers_equal"] = True
+    del loaded
+
+    extra = make_filtered_dataset(n=10_000, d=ds.vectors.shape[1],
+                                  n_queries=1, n_labels=1000, seed=1)
+    meta = [{"tag": m["label"], "value": m["value"]}
+            for m in extra.metadata()]
+    before = ops.snapshot()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    ids = index.insert(extra.vectors, meta)
+    torch.cuda.synchronize(dev)
+    out["insert_s"] = time.perf_counter() - t0
+    after = ops.snapshot()
+    out["insert_launches"] = {k: after[k] - before[k] for k in after}
+    assert ids.tolist() == list(range(n0, n0 + 10_000)), \
+        "inserted ids are not contiguous"
+    assert out["insert_launches"]["prune_scan"] > 0, \
+        "the insert launched no prune_scan"
+    out["inserted"] = int(ids.size)
+    out["capacity"] = int(e._builder.capacity)
+    with uncounted():
+        js = [j for j in range(len(meta)) if meta[j]["tag"]][:64]
+        reqs = [api.SearchRequest(
+            query=extra.vectors[j],
+            filter=api.Tag("tag") == int(meta[j]["tag"][0]), k=10)
+            for j in js]
+        res = index.search_batch(reqs, with_metadata=False)
+        out["self_hit_rate_64"] = float(np.mean(
+            [n0 + j in r.ids.tolist() for j, r in zip(js, res)]))
+
+        plan = parse_plan("rate=0.1,seed=7")
+        sels, clean = _label_batch(e, ds, scfg)
+        t0 = time.perf_counter()
+        _, faulted = _label_batch(e, ds, dataclasses.replace(
+            scfg, fault_plan=plan))
+        out["faulted_batch_s"] = time.perf_counter() - t0
+        ids_f, _, st = faulted
+        rec = [eng.recall_at_k(ids_f[i], clean[0][i][clean[0][i] >= 0],
+                               scfg.k) for i in range(len(sels))]
+        whole = [i for i in range(len(sels)) if not st.degraded[i]]
+        checked = _check_members(
+            "faulted label batch (undegraded queries)", e,
+            [sels[i] for i in whole], [ids_f[i] for i in whole])
+        out["fault_plan"] = {
+            "plan": "rate=0.1,seed=7", "faults": int(st.faults.sum()),
+            "retries": int(st.retries.sum()),
+            "degraded": int(st.degraded.sum()),
+            "queries_degraded": int((st.degraded > 0).sum()),
+            "recall_vs_clean": float(np.mean(rec)),
+            "verified_ids": checked,
+            "mechanisms": dict(collections.Counter(st.mechanism))}
+        assert out["fault_plan"]["faults"] > 0, "the plan drew no fault"
     return out
 
 
@@ -719,10 +1108,17 @@ KERNELS = {
                    "src/repro/kernels/prune_scan.py:58"),
     "pq_scan": ("pq_scan/scan", "src/repro_torch/kernels/csrc/pq_scan.cu",
                 "src/repro/kernels/pq_scan.py:48"),
+    "approx_probe": ("approx_probe/1M",
+                     "src/repro_torch/kernels/csrc/approx_probe.cu",
+                     "src/repro/kernels/approx_probe.py:83"),
+    "l2_rerank": ("l2_rerank/1Mx192",
+                  "src/repro_torch/kernels/csrc/l2_rerank.cu",
+                  "src/repro/kernels/l2_rerank.py:35"),
 }
 # the phase whose run counts each kernel's launches
 LAUNCH_PHASE = {"hop_fused": "full", "or_scatter": "full",
-                "prune_scan": "full", "pq_scan": "serve"}
+                "prune_scan": "full", "pq_scan": "serve",
+                "approx_probe": "ops", "l2_rerank": "ops"}
 
 
 def main(argv=None) -> int:
@@ -769,11 +1165,22 @@ def main(argv=None) -> int:
     full["seconds"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    serve = serve_phase(e, ds, dev)
+    serve, index = serve_phase(e, ds, dev)
     serve["seconds"] = time.perf_counter() - t0
     emit({"phase": "serve", **serve})
 
-    launches = {"full": full["launches"], "serve": serve["launches"]}
+    t0 = time.perf_counter()
+    opsr = ops_phase(e, ds)
+    opsr["seconds"] = time.perf_counter() - t0
+    emit({"phase": "ops", **opsr})
+
+    t0 = time.perf_counter()
+    life = lifecycle_phase(index, ds, dev)
+    life["seconds"] = time.perf_counter() - t0
+    emit({"phase": "lifecycle", **life})
+
+    launches = {"full": full["launches"], "serve": serve["launches"],
+                "ops": opsr["launches"]}
     rows = []
     for name, (key, source, replaces) in KERNELS.items():
         count = launches[LAUNCH_PHASE[name]][name]
@@ -791,6 +1198,7 @@ def main(argv=None) -> int:
                      "library_ms": r.get("library_ms")})
     emit({"kernels": rows, "n_full": full["n"], "n_cuts": cuts,
           "full_phase_s": full["seconds"], "serve_phase_s": serve["seconds"],
+          "ops_phase_s": opsr["seconds"], "lifecycle_phase_s": life["seconds"],
           "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

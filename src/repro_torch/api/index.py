@@ -11,19 +11,23 @@ verification path.
 
 The facade is also the DSL compiler's catalog: ``Tag``/``Num`` expressions
 resolve against its schema/vocabulary, and results come back with metadata
-re-resolved from the attribute stores.
+re-resolved from the attribute stores (so ``save``/``load`` round-trips
+need no sidecar record storage).
 
 Counterpart of ``repro.api.index``. The index lives on ``device`` (``None``:
 the card). An index built elsewhere — another port index's
 ``engine.arrays()``, or the JAX package's state as numpy — is wrapped as
 ``Index(FilteredANNEngine.from_arrays(arrays, config, device), vocab,
-schema, defaults)``. Checkpoints (``save``/``load``), the disk store,
-sharded builds and inserts are later slices of the port and raise
+schema, defaults)``. Checkpoints are the JAX package's format (``ckpt``), so
+an index saved by either package loads in the other. The disk store and
+sharded builds are later slices of the port and raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import Optional, Sequence
 
 import numpy as np
@@ -32,14 +36,19 @@ from repro_torch.api.filters import (FilterExpr, _check_fields, compile_expr,
                                      eval_mask)
 from repro_torch.api.schema import Schema
 from repro_torch.api.types import RequestStats, SearchRequest, SearchResult
+from repro_torch.ckpt import checkpoint as ckpt
 from repro_torch.core.engine import (ROADMAP_LATER, FilteredANNEngine,
                                      IndexConfig, QueryStats, SearchConfig,
                                      brute_force_filtered)
+from repro_torch.core.faults import FaultPlan
 from repro_torch.core.labels import LabelStore
-from repro_torch.core.ranges import MultiRangeStore
+from repro_torch.core.ranges import MultiRangeStore, RangeStore
 from repro_torch.core.records import RecordStore
 from repro_torch.core.selectors import (MaskSelector, MatchAllSelector,
                                         Selector)
+
+_META_FILE = "index_meta.json"
+_FORMAT = 2          # checkpoint format: 2 = schema-first multi-field
 
 
 def _is_numeric(v) -> bool:
@@ -174,17 +183,197 @@ class Index:
 
     def insert(self, vectors: np.ndarray,
                metadata: Sequence[dict]) -> np.ndarray:
-        raise NotImplementedError("Index.insert: IncrementalBuilder is "
-                                  + ROADMAP_LATER.format(3))
+        """Append records to a live index (streaming inserts).
+
+        New nodes are linked through the engine's incremental batched build
+        path; tag values unseen at build time extend the vocabulary (the
+        schema is fixed — records must carry every ``Schema.nums`` field and
+        may not introduce new fields). Returns the assigned record ids
+        (contiguous, ``len(index)`` before the call onward). Compiled
+        ``Selector`` objects hold the pre-insert attribute stores —
+        recompile filters (or use the DSL, which compiles per search) after
+        inserting."""
+        vectors = np.asarray(vectors, np.float32)
+        if vectors.ndim != 2:
+            raise ValueError(f"expected (M, D) vectors, got {vectors.shape}")
+        if len(metadata) != vectors.shape[0]:
+            raise ValueError(f"{vectors.shape[0]} vectors but "
+                             f"{len(metadata)} metadata dicts")
+        if vectors.shape[0] == 0:
+            return np.zeros(0, np.int64)
+        new_vocab, offsets, label_flat, values = _ingest_metadata(
+            metadata, self.schema, vocab=dict(self.vocab))
+        ids = self.engine.insert(vectors, offsets, label_flat,
+                                 max(1, len(new_vocab)), values)
+        # commit the vocabulary only after the engine accepted the batch
+        self.vocab = new_vocab
+        self._label_names.extend([None] * (len(new_vocab)
+                                           - len(self._label_names)))
+        for (field, value), lab in new_vocab.items():
+            if self._label_names[lab] is None:
+                self._label_names[lab] = (field, value)
+        return ids
+
+    # -- persistence -----------------------------------------------------
+    def _array_tree(self) -> dict:
+        """Checkpoint leaves (format 2), as numpy arrays. Device tensors are
+        trimmed to the valid record count — capacity pads are a live-index
+        artifact, not index state. Per-field range structures save stacked:
+        (F, n) sorted indexes, (F, B+1) bounds, (F, Q) quantiles, (n, F)
+        values and codes. Bloom words are the host label store's uint32."""
+        e = self.engine
+        n = e.n
+        ls, rs = e.label_store, e.range_store
+
+        def host(t):
+            return t[:n].cpu().numpy()
+
+        return {
+            "store_vectors": host(e.store.vectors),
+            "store_neighbors": host(e.store.neighbors),
+            "store_dense_neighbors": host(e.store.dense_neighbors),
+            "store_rec_labels": host(e.store.rec_labels),
+            "store_rec_values": host(e.store.rec_values),
+            "pq_codes": host(e.codes),
+            "pq_centroids": e.codebook.centroids.cpu().numpy(),
+            "ls_vec_offsets": ls.vec_offsets, "ls_vec_labels": ls.vec_labels,
+            "ls_inv_offsets": ls.inv_offsets,
+            "ls_inv_postings": ls.inv_postings,
+            "ls_label_counts": ls.label_counts, "ls_blooms": ls.blooms,
+            "rs_values": rs.values,
+            "rs_sorted_values": np.stack([s.sorted_values
+                                          for s in rs.stores]),
+            "rs_sorted_ids": np.stack([s.sorted_ids for s in rs.stores]),
+            "rs_bucket_bounds": np.stack([s.bucket_bounds
+                                          for s in rs.stores]),
+            "rs_bucket_codes": rs.bucket_codes,
+            "rs_quantiles": np.stack([s.quantiles for s in rs.stores]),
+        }
 
     def save(self, path: str, injector=None):
-        raise NotImplementedError("Index.save: checkpoints are "
-                                  + ROADMAP_LATER.format("2b"))
+        """Persist through ``ckpt`` (atomic step dir + manifest) plus a JSON
+        sidecar for the schema, vocabulary and static config.
+
+        Steps increment per save and the last two are kept, so a save that
+        lands corrupted still leaves the previous intact step for ``load``
+        to fall back to. The sidecar is written at the root (newest wins)
+        and inside the step dir: array shapes differ across steps after
+        inserts, so a fallback reads the meta of the step it restores.
+        ``injector`` (``core.faults.FaultInjector``) makes leaf writes
+        flaky."""
+        tree = self._array_tree()
+        prev = ckpt.latest_step(path)
+        step = 0 if prev is None else prev + 1
+        ckpt.save(path, step=step, tree=tree, async_write=False,
+                  keep_last=2, injector=injector)
+        e = self.engine
+        meta = {
+            "format": _FORMAT,
+            "config": dataclasses.asdict(e.config),
+            "defaults": dataclasses.asdict(self.defaults),
+            "medoid": int(e.medoid),
+            "schema": self.schema.to_json(),
+            "codebook_dim": int(e.codebook.dim),
+            "pages_std": int(e.store.pages_std),
+            "pages_dense": int(e.store.pages_dense),
+            "n_labels": int(e.label_store.n_labels),
+            "k_hashes": int(e.label_store.k_hashes),
+            "vocab": [[f, v, lab] for (f, v), lab in self.vocab.items()],
+            "arrays": {k: {"shape": list(a.shape), "dtype": str(a.dtype)}
+                       for k, a in tree.items()},
+        }
+        for meta_path in (os.path.join(path, _META_FILE),
+                          os.path.join(path, f"step_{step}", _META_FILE)):
+            with open(meta_path, "w") as fh:
+                json.dump(meta, fh)
 
     @classmethod
-    def load(cls, path: str, shards: int = 0) -> "Index":
-        raise NotImplementedError("Index.load: checkpoints are "
-                                  + ROADMAP_LATER.format("2b"))
+    def load(cls, path: str, shards: int = 0, device=None) -> "Index":
+        """Load a saved index onto ``device`` (``None``: the card),
+        recovering from corrupted steps.
+
+        Stale ``step_K.tmp`` dirs are reaped first. Steps are then tried
+        newest-first: one that fails integrity verification (checksum
+        mismatch, truncated leaf, shape/dtype drift) is quarantined as
+        ``step_K.quarantined`` and the previous step is restored instead;
+        only when no intact step remains does the error propagate. Format-1
+        checkpoints (one numeric field, flat range arrays) load through
+        :func:`_shim_legacy_checkpoint`. ``shards > 1`` and checkpoints of
+        the disk backend are later slices of the port."""
+        if shards > 1:
+            raise NotImplementedError(
+                "Index.load(shards > 1): sharding on torch.distributed is "
+                + ROADMAP_LATER.format(7))
+        ckpt.reap_tmp(path)
+        steps = sorted(ckpt._list_steps(path), reverse=True)
+        if not steps:
+            raise FileNotFoundError(f"no checkpoint steps in {path}")
+        t = meta = None
+        for n_try, step in enumerate(steps):
+            # per-step sidecar when present (array shapes track the step);
+            # the root sidecar only describes the newest save
+            meta_fn = os.path.join(path, f"step_{step}", _META_FILE)
+            if not os.path.exists(meta_fn):
+                meta_fn = os.path.join(path, _META_FILE)
+            try:
+                with open(meta_fn) as fh:
+                    meta = json.load(fh)
+                if meta.get("backend") == "disk":
+                    raise NotImplementedError(
+                        "Index.load of a disk-backend checkpoint: the disk "
+                        "tier is " + ROADMAP_LATER.format(6))
+                target = {k: ckpt.ArraySpec(tuple(v["shape"]),
+                                            np.dtype(v["dtype"]))
+                          for k, v in meta["arrays"].items()}
+                t = ckpt.restore(path, step, target)
+                break
+            except (ckpt.CheckpointCorruptionError, json.JSONDecodeError,
+                    OSError):
+                ckpt.quarantine(path, step)
+                if n_try == len(steps) - 1:
+                    raise
+        if meta.get("format", 1) < 2:
+            t, meta = _shim_legacy_checkpoint(t, meta)
+
+        n_rec = t["store_vectors"].shape[0]
+        label_store = LabelStore(
+            n_vectors=n_rec, n_labels=meta["n_labels"],
+            vec_offsets=t["ls_vec_offsets"], vec_labels=t["ls_vec_labels"],
+            inv_offsets=t["ls_inv_offsets"],
+            inv_postings=t["ls_inv_postings"],
+            label_counts=t["ls_label_counts"], blooms=t["ls_blooms"],
+            k_hashes=meta["k_hashes"])
+        range_store = MultiRangeStore([
+            RangeStore(
+                n_vectors=n_rec, values=t["rs_values"][:, j],
+                sorted_values=t["rs_sorted_values"][j],
+                sorted_ids=t["rs_sorted_ids"][j],
+                bucket_bounds=t["rs_bucket_bounds"][j],
+                bucket_codes=t["rs_bucket_codes"][:, j],
+                quantiles=t["rs_quantiles"][j])
+            for j in range(t["rs_values"].shape[1])])
+        config = dict(meta["config"])
+        # which builder made the graph: the port serves and inserts through
+        # the batched path whichever it was, as the JAX package does
+        config.pop("builder", None)
+        engine = FilteredANNEngine.from_arrays(
+            {"vectors": t["store_vectors"], "neighbors": t["store_neighbors"],
+             "dense_neighbors": t["store_dense_neighbors"],
+             "rec_labels": t["store_rec_labels"],
+             "rec_values": t["store_rec_values"], "codes": t["pq_codes"],
+             "centroids": t["pq_centroids"], "medoid": meta["medoid"],
+             "blooms": label_store.blooms,
+             "bucket_codes": range_store.bucket_codes},
+            IndexConfig(**config), device=device, label_store=label_store,
+            range_store=range_store)
+        vocab = {(f, v): lab for f, v, lab in meta["vocab"]}
+        defaults = dict(meta["defaults"])
+        if isinstance(defaults.get("fault_plan"), dict):
+            # dataclasses.asdict flattened the plan into a nested dict
+            defaults["fault_plan"] = FaultPlan.from_json(
+                defaults["fault_plan"])
+        return cls(engine, vocab, Schema.from_json(meta["schema"]),
+                   SearchConfig(**defaults))
 
     # -- catalog duck type (used by the filter compiler) ----------------
     @property
@@ -360,3 +549,28 @@ class Index:
         d = np.where(mask, d, np.inf)
         order = np.argsort(d)[:k]
         return order[np.isfinite(d[order])]
+
+
+def _shim_legacy_checkpoint(t: dict, meta: dict) -> tuple[dict, dict]:
+    """Map a format-1 (single numeric field) checkpoint onto F=1 arrays.
+
+    Legacy layout: ``store_rec_values``/``rs_values``/``rs_bucket_codes``
+    are flat ``(n,)``, per-field structures have no leading F axis, and the
+    sidecar names a ``numeric_field`` instead of a schema. Tag fields are
+    reconstructed from the vocabulary (legacy metas stored no field list).
+    """
+    t = dict(t)
+    meta = dict(meta)
+    for key in ("store_rec_values", "rs_values", "rs_bucket_codes"):
+        if t[key].ndim == 1:
+            t[key] = t[key][:, None]
+    for key in ("rs_sorted_values", "rs_sorted_ids", "rs_bucket_bounds",
+                "rs_quantiles"):
+        if t[key].ndim == 1:
+            t[key] = t[key][None]
+    numeric_field = meta.pop("numeric_field", None)
+    tag_fields = sorted({f for f, _, _ in meta["vocab"]})
+    meta["schema"] = {"tags": tag_fields,
+                      "nums": [numeric_field] if numeric_field else []}
+    meta["format"] = _FORMAT
+    return t, meta

@@ -28,10 +28,13 @@ import torch
 
 from repro_torch.core import cost_model, graph, pq as pq_mod, prefilter, \
     search
+from repro_torch.core.faults import FaultPlan
 from repro_torch.core.labels import (LabelStore, build_label_store,
+                                     extend_label_store, padded_rows_from_csr,
                                      padded_vec_labels)
 from repro_torch.core.ranges import MultiRangeStore, build_multi_range_store
-from repro_torch.core.records import RecordStore, make_record_store
+from repro_torch.core.records import (RecordStore, candidate_first_mask,
+                                      make_record_store)
 from repro_torch.core.selectors import (InMemory, QueryFilter, Selector,
                                         filter_to_device, is_member,
                                         stack_filters)
@@ -70,7 +73,10 @@ class SearchConfig:
                               # (0 = single-shot search)
     prefetch_depth: int = 2   # record slabs in flight per query (feeds the
                               # modeled SSD latency; results are invariant)
-    fault_plan: object = None  # fault injection: not ported yet
+    fault_plan: FaultPlan | None = None
+                              # seeded fault injection on the record-read
+                              # path (core/faults.py) — None serves the
+                              # clean hot path
 
 
 def apply_rung(scfg: SearchConfig,
@@ -109,7 +115,7 @@ class QueryStats:
     n_valid: np.ndarray
     selectivity: np.ndarray
     precision_in: np.ndarray
-    faults: np.ndarray        # injected fault events (0: no fault plan yet)
+    faults: np.ndarray        # injected fault events (0 without a plan)
     retries: np.ndarray
     degraded: np.ndarray
 
@@ -136,7 +142,8 @@ class FilteredANNEngine:
         self.medoid = medoid
         self.config = config
         self.device = codes.device
-        self.n = label_store.n_vectors
+        self.n = label_store.n_vectors  # valid records (stores may hold pads)
+        self._builder = None      # lazy IncrementalBuilder (insert path)
         self.calibration: cost_model.Calibration | None = None
         self.build_times: dict = {}
 
@@ -208,11 +215,14 @@ class FilteredANNEngine:
     @classmethod
     def _assemble(cls, vectors, adj, dense, codes, codebook, medoid,
                   label_offsets, label_flat, n_labels, values, config, dev,
-                  blooms, bucket_codes, rec_labels=None, rec_values=None):
-        label_store = build_label_store(np.asarray(label_offsets, np.int64),
-                                        np.asarray(label_flat, np.int32),
-                                        int(n_labels))
-        range_store = build_multi_range_store(values)
+                  blooms, bucket_codes, rec_labels=None, rec_values=None,
+                  label_store=None, range_store=None):
+        if label_store is None:
+            label_store = build_label_store(
+                np.asarray(label_offsets, np.int64),
+                np.asarray(label_flat, np.int32), int(n_labels))
+        if range_store is None:
+            range_store = build_multi_range_store(values)
         if rec_labels is None:
             rec_labels = padded_vec_labels(label_store, config.max_labels)
         if rec_values is None:
@@ -237,14 +247,20 @@ class FilteredANNEngine:
                    int(medoid), config)
 
     @classmethod
-    def from_arrays(cls, arrays: dict, config: IndexConfig,
-                    device=None) -> "FilteredANNEngine":
+    def from_arrays(cls, arrays: dict, config: IndexConfig, device=None,
+                    label_store: LabelStore | None = None,
+                    range_store: MultiRangeStore | None = None
+                    ) -> "FilteredANNEngine":
         """An engine over arrays built elsewhere (the JAX package's state as
-        numpy, or another port engine's :meth:`arrays`): ``vectors``,
-        ``neighbors``, ``dense_neighbors``, ``rec_labels``, ``rec_values``,
-        ``codes``, ``centroids``, ``medoid``, ``blooms``, ``bucket_codes``
-        and the raw ``label_offsets``/``label_flat``/``n_labels``/``values``
-        from which the host label and range stores are rebuilt."""
+        numpy, another port engine's :meth:`arrays`, or a checkpoint):
+        ``vectors``, ``neighbors``, ``dense_neighbors``, ``rec_labels``,
+        ``rec_values``, ``codes``, ``centroids``, ``medoid``, ``blooms``,
+        ``bucket_codes``, and either the raw ``label_offsets``/
+        ``label_flat``/``n_labels``/``values`` from which the host label and
+        range stores are rebuilt, or the stores themselves
+        (``label_store``/``range_store``). A checkpoint taken after inserts
+        passes its stores: they keep the build-time bucket bounds, which a
+        rebuild from the raw values would not."""
         dev = resolve_device(device)
         a = {k: (v.cpu().numpy() if torch.is_tensor(v) else np.array(v))
              for k, v in arrays.items()}
@@ -256,10 +272,11 @@ class FilteredANNEngine:
         codes = torch.from_numpy(np.ascontiguousarray(a["codes"])).to(dev)
         return cls._assemble(
             vectors, a["neighbors"], a["dense_neighbors"], codes, codebook,
-            int(a["medoid"]), a["label_offsets"], a["label_flat"],
-            int(a["n_labels"]), a["values"], config, dev,
+            int(a["medoid"]), a.get("label_offsets"), a.get("label_flat"),
+            a.get("n_labels"), a.get("values"), config, dev,
             blooms=a["blooms"], bucket_codes=a["bucket_codes"],
-            rec_labels=a["rec_labels"], rec_values=a["rec_values"])
+            rec_labels=a["rec_labels"], rec_values=a["rec_values"],
+            label_store=label_store, range_store=range_store)
 
     def arrays(self) -> dict:
         """This engine's state as numpy arrays, in the layout
@@ -297,9 +314,134 @@ class FilteredANNEngine:
         raise NotImplementedError("attach_disk_store: the disk tier is "
                                   + ROADMAP_LATER.format(6))
 
-    def insert(self, vectors, label_offsets, label_flat, n_labels, values):
-        raise NotImplementedError("insert: IncrementalBuilder is "
-                                  + ROADMAP_LATER.format(3))
+    def insert(self, vectors: np.ndarray, label_offsets: np.ndarray,
+               label_flat: np.ndarray, n_labels: int,
+               values: np.ndarray) -> np.ndarray:
+        """Append records through the incremental batched build path
+        (``graph.IncrementalBuilder``): each batch is linked by one final-α
+        pass (greedy search from the medoid → batched RobustPrune on the
+        ``prune_scan`` kernel → reverse-edge scatter). Returns the new
+        record ids, contiguous from ``self.n``.
+
+        The stores are **capacity-padded**, as in the JAX package: device
+        tensors are allocated at the builder's geometric capacity (pad rows
+        unreachable — no edge points at them; labels -1, values 0, vectors
+        0) and new rows are written in place. The host attribute summaries
+        extend incrementally; bucket bounds stay fixed unless a skewed
+        stream forces a quantile refresh, which re-codes every row. The PQ
+        codebook is not retrained: new vectors are encoded against the
+        build-time centroids. Holders of a stale ``engine.store`` or
+        ``engine.mem`` must re-read them after an insert."""
+        cfg = self.config
+        vectors = np.asarray(vectors, np.float32)
+        m = vectors.shape[0]
+        if m == 0:
+            return np.zeros(0, np.int64)
+        # store.dim exceeds the build-time input dim only by the pq_m
+        # alignment pad, so a narrower batch is a caller error
+        if not (self.store.dim - cfg.pq_m < vectors.shape[1]
+                <= self.store.dim):
+            raise ValueError(
+                f"vector dim {vectors.shape[1]} does not match index dim "
+                f"{self.store.dim} (built from inputs of dim in "
+                f"({self.store.dim - cfg.pq_m}, {self.store.dim}])")
+        if vectors.shape[1] < self.store.dim:
+            vectors = np.pad(
+                vectors, ((0, 0), (0, self.store.dim - vectors.shape[1])))
+        values = np.asarray(values, np.float32)
+        if values.ndim == 1:
+            values = values[:, None]
+        if values.shape != (m, self.n_fields):
+            raise ValueError(
+                f"expected ({m}, {self.n_fields}) values, got {values.shape}")
+        if self._builder is None:
+            self._builder = graph.IncrementalBuilder(
+                self.store.vectors[:self.n], self.store.neighbors[:self.n],
+                self.medoid,
+                ell=cfg.l_build, alpha=cfg.alpha, device=self.device)
+        n0 = self.n
+        ids = self._builder.add_batch(vectors)
+
+        # host attribute summaries: incremental extension (no rebuild)
+        self.label_store = extend_label_store(
+            self.label_store, np.asarray(label_offsets, np.int64),
+            np.asarray(label_flat, np.int32), int(n_labels))
+        self.range_store = self.range_store.append(values)
+
+        self._refresh_padded_stores(n0, m, vectors)
+        self.n = n0 + m
+        return ids
+
+    def _refresh_padded_stores(self, n0: int, m: int, new_vectors):
+        """Bring the capacity-padded device tier up to date after a host
+        store extend: the m new rows are written in place; a capacity
+        growth first reallocates every tensor at the new capacity.
+        ``dense_neighbors`` is resampled over the grown graph either way
+        (inserts scatter reverse edges into existing rows)."""
+        cfg = self.config
+        dev = self.device
+        cap = self._builder.capacity
+        n_new = n0 + m
+        adj_dev = self._builder.adjacency_device          # (cap, R)
+        dense = torch.from_numpy(graph.densify_2hop(
+            adj_dev.cpu().numpy(), cfg.r_dense, seed=cfg.seed + 1)).to(dev)
+        # new rows come from the extended label store's CSR slice, which
+        # has already deduplicated (vector, label) pairs
+        ls = self.label_store
+        row_start = int(ls.vec_offsets[n0])
+        new_rec_labels = padded_rows_from_csr(
+            ls.vec_offsets[n0:] - row_start, ls.vec_labels[row_start:],
+            cfg.max_labels)
+        new_values = np.stack([s.values[n0:n_new]
+                               for s in self.range_store.stores], axis=1)
+        new_codes = pq_mod.encode_pq(
+            self.codebook, torch.from_numpy(new_vectors).to(dev))
+        new_blooms = ls.blooms[n0:n_new].view(np.int32)
+        new_buckets = np.stack([s.bucket_codes[n0:n_new]
+                                for s in self.range_store.stores], axis=1)
+
+        if self.store.vectors.shape[0] != cap:             # grown
+            def pad_to_cap(t, fill):
+                out = torch.full((cap,) + tuple(t.shape[1:]), fill,
+                                 dtype=t.dtype, device=dev)
+                out[:n0] = t[:n0]
+                return out
+
+            rec_labels = pad_to_cap(self.store.rec_labels, -1)
+            rec_values = pad_to_cap(self.store.rec_values, 0)
+            codes = pad_to_cap(self.codes, 0)
+            blooms = pad_to_cap(self.mem.blooms, 0)
+            buckets = pad_to_cap(self.mem.bucket_codes, 0)
+        else:
+            rec_labels = self.store.rec_labels
+            rec_values = self.store.rec_values
+            codes = self.codes
+            blooms = self.mem.blooms
+            buckets = self.mem.bucket_codes
+
+        graph.write_rows(rec_labels, new_rec_labels, n0)
+        graph.write_rows(rec_values, new_values, n0)
+        graph.write_rows(codes, new_codes, n0)
+        graph.write_rows(blooms, new_blooms, n0)
+        if self.range_store.bounds_refreshed:
+            # a quantile refresh re-coded EVERY row: replace the column
+            # wholesale — mixing two generations of bounds would break the
+            # no-false-negative contract of is_member_approx
+            buckets = torch.zeros((cap, self.n_fields), dtype=torch.uint8,
+                                  device=dev)
+            buckets[:n_new] = torch.from_numpy(
+                np.ascontiguousarray(self.range_store.bucket_codes)).to(dev)
+        else:
+            graph.write_rows(buckets, new_buckets, n0)
+        self.codes = codes
+        self.mem = InMemory(blooms=blooms, bucket_codes=buckets)
+        self.store = RecordStore(
+            vectors=self._builder.data_device, neighbors=adj_dev,
+            dense_neighbors=dense, rec_labels=rec_labels,
+            rec_values=rec_values, pages_std=self.store.pages_std,
+            pages_dense=self.store.pages_dense,
+            # the 2-hop sample was just resampled: re-derive the mask
+            cand_first=candidate_first_mask(adj_dev, dense))
 
     def approx_scan(self, queries: np.ndarray,
                     selectors: Sequence[Selector],
@@ -427,11 +569,6 @@ class FilteredANNEngine:
             queries = np.pad(queries, ((0, 0), (0, pad)))
         B = queries.shape[0]
         assert len(selectors) == B and len(scfgs) == B
-        for sc in scfgs:
-            if sc.fault_plan is not None:
-                raise NotImplementedError(
-                    "fault_plan: the fault ladder is "
-                    + ROADMAP_LATER.format(4))
         cfg = self.config
 
         plans = [s.plan(cfg.ql, cfg.cap, cfg.qr) for s in selectors]
@@ -492,7 +629,8 @@ class FilteredANNEngine:
             sp = search.SearchParams(
                 l_search=eff_l, k=scfg.k, beam_width=scfg.beam_width,
                 max_hops=scfg.max_hops, mode=mode, l_valid=scfg.l,
-                prefetch_depth=scfg.prefetch_depth)
+                prefetch_depth=scfg.prefetch_depth,
+                fault_plan=scfg.fault_plan)
             entries = None
             seed_pages = np.zeros(len(idxs), np.int64)
             if mode == "strict_in":

@@ -199,18 +199,35 @@ def _scatter_pairs(adj_ext: torch.Tensor, tgt: torch.Tensor,
     return adj_ext, st, ss, overflow
 
 
-def _link_batch(data, adj_ext, ids, live, pool_ids, r: int, alpha: float):
-    """Prune an insertion batch's rows and scatter their reverse edges
-    (``adj_ext`` is updated in place)."""
+def write_rows(buf: torch.Tensor, rows, start: int) -> torch.Tensor:
+    """In-place row write ``buf[start:start+len(rows)] = rows``; returns
+    ``buf``. (The JAX package donates the buffer to a jitted update to
+    avoid a functional copy; a PyTorch tensor is written in place.)"""
+    rows = torch.as_tensor(rows).to(buf.device, buf.dtype)
+    buf[start:start + rows.shape[0]] = rows
+    return buf
+
+
+def apply_pruned_rows(adj_ext: torch.Tensor, ids: torch.Tensor,
+                      live: torch.Tensor, rows: torch.Tensor):
+    """Row set + reverse-edge scatter of pruned rows: the back half of
+    :func:`_link_batch` (and of a sharded build's link step). ``adj_ext``
+    is updated in place; returns what :func:`_scatter_pairs` returns."""
     dump = adj_ext.shape[0] - 1
-    cand = torch.cat([pool_ids, adj_ext[ids.long()]], dim=1)
-    cand = _dedup_ascending(cand, ids)
-    rows = robust_prune_batch(data, ids, cand, r=r, alpha=alpha)
     rows = torch.where(live[:, None], rows, -1)
     adj_ext[torch.where(live, ids, dump).long()] = rows
     tgt = rows.reshape(-1)
-    src = ids.repeat_interleave(r)
+    src = ids.repeat_interleave(rows.shape[1])
     return _scatter_pairs(adj_ext, tgt, src)
+
+
+def _link_batch(data, adj_ext, ids, live, pool_ids, r: int, alpha: float):
+    """Prune an insertion batch's rows and scatter their reverse edges
+    (``adj_ext`` is updated in place)."""
+    cand = torch.cat([pool_ids, adj_ext[ids.long()]], dim=1)
+    cand = _dedup_ascending(cand, ids)
+    rows = robust_prune_batch(data, ids, cand, r=r, alpha=alpha)
+    return apply_pruned_rows(adj_ext, ids, live, rows)
 
 
 def _pow2_pad(m: int, lo: int = 32) -> int:
@@ -362,6 +379,105 @@ def build_vamana_batched(data: np.ndarray, r: int = 32, ell: int = 64,
             sync(device)
             timings[f"pass{pass_i + 1}_s"] = time.perf_counter() - t0
     return adj_ext[:-1].cpu().numpy(), medoid
+
+
+class IncrementalBuilder:
+    """Appends batches of new nodes to a live Vamana graph on ``device``.
+
+    Counterpart of ``repro.core.graph.IncrementalBuilder``. Wraps (data,
+    adjacency, medoid) with geometric capacity growth, so the engine's
+    capacity-padded stores keep their shape across most inserts.
+    :meth:`add_batch` links each new node with a single final-α pass
+    (greedy search from the medoid → batched RobustPrune on the
+    ``prune_scan`` kernel → batched reverse-edge scatter). Unreached
+    capacity rows hold zero vectors and empty (-1) adjacency: no stored
+    edge points at them, so searches cannot reach them. The adjacency's
+    extra last row is the dump row of masked writes.
+    """
+
+    def __init__(self, data, adj, medoid: int, ell: int = 64,
+                 alpha: float = 1.2, batch: int = 1024, device=None):
+        """``data`` (N, D) and ``adj`` (N, R): numpy arrays or tensors,
+        copied onto ``device`` (the builder owns its state)."""
+        self.device = resolve_device(device)
+        data = torch.as_tensor(data, dtype=torch.float32).to(
+            self.device).clone()
+        adj = torch.as_tensor(adj, dtype=torch.int32).to(self.device)
+        assert data.shape[0] == adj.shape[0]
+        self.n = data.shape[0]
+        self.r = adj.shape[1]
+        self.ell = ell
+        self.alpha = float(alpha)
+        self.batch = batch
+        self.medoid = int(medoid)
+        self._cap = self.n
+        self._data_dev = data
+        self._adj_ext = torch.cat(
+            [adj, torch.full((1, self.r), -1, dtype=torch.int32,
+                             device=self.device)])
+
+    # -- state ----------------------------------------------------------
+    @property
+    def capacity(self) -> int:
+        """Allocated rows; grows geometrically, ≥ n."""
+        return self._cap
+
+    @property
+    def data_device(self) -> torch.Tensor:
+        """(capacity, D) vectors — rows ≥ n are zero pads. Shared with the
+        engine's record store and written in place by later inserts."""
+        return self._data_dev
+
+    @property
+    def adjacency_device(self) -> torch.Tensor:
+        """(capacity, R) adjacency — rows ≥ n are -1 pads; a view shared
+        with the engine's record store, written in place by later
+        inserts."""
+        return self._adj_ext[:self._cap]
+
+    def _grow(self, need: int):
+        cap = self._cap
+        while cap < need:
+            cap = max(cap + self.batch, int(cap * 1.5))
+        if cap == self._cap:
+            return
+        data = torch.zeros((cap, self._data_dev.shape[1]),
+                           dtype=torch.float32, device=self.device)
+        data[:self.n] = self._data_dev[:self.n]
+        self._data_dev = data
+        adj = torch.full((cap + 1, self.r), -1, dtype=torch.int32,
+                         device=self.device)
+        adj[:self.n] = self._adj_ext[:self.n]
+        self._adj_ext = adj
+        self._cap = cap
+
+    # -- streaming insert ----------------------------------------------
+    def add_batch(self, vectors: np.ndarray) -> np.ndarray:
+        """Insert new vectors; returns their assigned ids (contiguous)."""
+        vectors = np.asarray(vectors, np.float32)
+        if vectors.ndim != 2 or vectors.shape[1] != self._data_dev.shape[1]:
+            raise ValueError(
+                f"expected (M, {self._data_dev.shape[1]}) vectors, got "
+                f"{vectors.shape}")
+        m = vectors.shape[0]
+        if m == 0:
+            return np.zeros(0, np.int64)
+        self._grow(self.n + m)
+        new_ids = np.arange(self.n, self.n + m, dtype=np.int64)
+        write_rows(self._data_dev, torch.from_numpy(vectors), self.n)
+        for s in range(0, m, self.batch):
+            ids = new_ids[s:s + self.batch].astype(np.int32)
+            ids, live = _pad_batch(
+                ids, min(_pow2_pad(ids.size, lo=8), self.batch))
+            ids_dev = torch.from_numpy(ids).to(self.device)
+            pool_ids, _ = greedy_search_beam(
+                self._data_dev, self._adj_ext, self.medoid,
+                self._data_dev[ids_dev.long()], self.ell, max_hops=self.ell)
+            self._adj_ext = _apply_batch(
+                self._data_dev, self._adj_ext, ids, live, pool_ids,
+                r=self.r, alpha=self.alpha)
+        self.n += m
+        return new_ids
 
 
 # ---------------------------------------------------------------------------

@@ -17,7 +17,11 @@ Modes
 * ``strict_in`` — the strict baseline: every neighbor's exact attributes are
                   read before it may enter the pool (+1 page per neighbor).
 
-Exact verification piggybacks on the re-rank fetch.
+Exact verification piggybacks on the re-rank fetch. Under a
+:class:`~repro_torch.core.faults.FaultPlan` every slab read walks the
+retry → hedge → degrade ladder (``core/faults.py``): a row whose every
+attempt failed is answered from the in-memory tier (ADC distance and
+approximate membership) and its neighbours are not expanded.
 
 Hop pipeline: a per-query word-packed visited bitmap (set by
 ``kernels.ops.or_scatter``), a key-sorted pool merged by one stable sort, an
@@ -43,8 +47,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core import faults as faults_mod
 from repro_torch.core import io_sim
 from repro_torch.core import pq as pq_mod
+from repro_torch.core.faults import FaultPlan
 from repro_torch.core.records import RecordStore
 from repro_torch.core.selectors import (InMemory, QueryFilter,
                                         filter_to_device, is_member,
@@ -72,17 +78,16 @@ class SearchParams:
                             # (0 -> defaults to l_search)
     prefetch_depth: int = 2  # record slabs in flight per query (feeds the
                             # modeled SSD latency only; results invariant)
-    fault_plan: object = None  # fault injection: not ported yet
+    fault_plan: FaultPlan | None = None
+                            # seeded fault injection on the frontier slab
+                            # reads (core/faults.py); None, or a plan whose
+                            # rates are all zero, runs the clean hop step
 
     def __post_init__(self):
         assert self.mode in ("post", "spec_in", "strict_in")
         assert 1 <= self.prefetch_depth <= io_sim.IOModel.parallelism, (
             f"prefetch_depth={self.prefetch_depth} outside "
             f"[1, IOModel.parallelism={io_sim.IOModel.parallelism}]")
-        if self.fault_plan is not None:
-            raise NotImplementedError(
-                "fault_plan: the fault ladder is a later slice of the port "
-                "(ROADMAP queue A, item 4)")
 
 
 class SearchResult(NamedTuple):
@@ -95,9 +100,11 @@ class SearchResult(NamedTuple):
     n_valid: torch.Tensor      # (B,) int32 verified-valid results found
     fp_explored: torch.Tensor  # (B,) int32 explored records verified invalid
     explored: torch.Tensor     # (B,) int32 records fetched & exact-verified
-    faults: torch.Tensor       # (B,) int32 (0: no fault plan in the port yet)
-    retries: torch.Tensor      # (B,) int32 (0)
-    degraded: torch.Tensor     # (B,) int32 (0)
+    faults: torch.Tensor       # (B,) int32 injected fault events
+    retries: torch.Tensor      # (B,) int32 extra read attempts (retries +
+                               # hedged reads)
+    degraded: torch.Tensor     # (B,) int32 rows that exhausted the ladder
+                               # and were answered from the in-memory tier
 
 
 def local_fetch(store: RecordStore, ids: torch.Tensor) -> dict:
@@ -298,7 +305,7 @@ def _init(store, codes, codebook, mem, qf, queries, entry, params, entries):
     return QueryCtx(queries, tables, qf, merged_tbl), st
 
 
-def _hop_step(store, codes, params, ctx, mc, st, rec) -> HopState:
+def _hop_step(store, codes, mem, params, ctx, mc, st, rec) -> HopState:
     """Consume the in-flight record slab for one hop, merge, and select the
     next frontier (the step numbering follows ``repro``'s ``_hop_step``)."""
     p = params
@@ -325,9 +332,44 @@ def _hop_step(store, codes, params, ctx, mc, st, rec) -> HopState:
     rv = rec["rec_values"].reshape(B, W, -1)
     io = counters[:, 0] + cur_live.sum(1, dtype=torch.int32) * rec_pages
 
+    # ---- 2''. fault ladder on the slab read (core/faults.py) ----
+    # Retry → hedge → degrade. Every draw is a stateless hash of (record
+    # id, that query's own hop counter, attempt), so compaction can gather
+    # rows in any order and no draw changes. Rows whose every attempt drew
+    # bad are "degraded".
+    plan = p.fault_plan
+    faults_c, retries_c, degraded_c = (counters[:, 4], counters[:, 5],
+                                       counters[:, 6])
+    degraded_rows = None
+    if plan is not None and plan.reads_faulty:
+        ids_safe = torch.where(cur_live, cur_ids, 0)
+        hcol = hops[:, None]
+        pending = faults_mod.read_attempt_bad(ids_safe, hcol, 0,
+                                              plan) & cur_live
+        n_faults = pending.sum(1, dtype=torch.int32)
+        n_retries = torch.zeros_like(n_faults)
+        for a in range(1, plan.attempts):
+            n_retries = n_retries + pending.sum(1, dtype=torch.int32)
+            pending = pending & faults_mod.read_attempt_bad(ids_safe, hcol,
+                                                            a, plan)
+            n_faults = n_faults + pending.sum(1, dtype=torch.int32)
+        degraded_rows = pending
+        spikes = faults_mod.read_spike(ids_safe, hcol, plan) & cur_live
+        faults_c = faults_c + n_faults + spikes.sum(1, dtype=torch.int32)
+        retries_c = retries_c + n_retries
+        degraded_c = degraded_c + degraded_rows.sum(1, dtype=torch.int32)
+        io = io + n_retries * rec_pages          # each retry re-reads pages
+
     # ---- 3. re-rank + piggybacked exact verification ----
     ex_d = torch.where(cur_live, sq_dist(vecs, queries[:, None, :]), BIG)
     ex_ok = is_member(qf, rl, rv) & cur_live
+    if degraded_rows is not None:
+        # a degraded row never saw its record: its ADC distance and approx
+        # membership (a no-false-negative superset) stand in for it
+        deg_d = torch.where(cur_live, _slab_pq(codes, ids_safe, tables), BIG)
+        deg_ok = is_member_approx(qf, ids_safe, mem) & cur_live
+        ex_d = torch.where(degraded_rows, deg_d, ex_d)
+        ex_ok = torch.where(degraded_rows, deg_ok, ex_ok)
     pos = torch.where(active[:, None], hops[:, None].long() * W + w_iota,
                       w_iota)
     res_ids = _put_rows(res_ids, pos, torch.where(cur_live, cur_ids, -1),
@@ -346,7 +388,9 @@ def _hop_step(store, codes, params, ctx, mc, st, rec) -> HopState:
         cand = torch.cat([nbrs, dn], dim=2)                  # (B, W, C)
     else:
         cand = nbrs
-    cand = torch.where(cur_live[:, :, None], cand, -1).reshape(B, W * C)
+    expand_live = (cur_live if degraded_rows is None
+                   else cur_live & ~degraded_rows)
+    cand = torch.where(expand_live[:, :, None], cand, -1).reshape(B, W * C)
     live = cand >= 0
     safe_cand = torch.where(live, cand, 0)
     seen = _bit_test(visited, _visited_slot(safe_cand, n_ids))
@@ -430,8 +474,8 @@ def _hop_step(store, codes, params, ctx, mc, st, rec) -> HopState:
     best_unexp = torch.where(pool_exp, BIG, pool_key).min(1).values
     settled = (n_okc >= l_valid) & (best_unexp > vtop[:, l_valid - 1])
     active = active & (hops_new < p.max_hops) & frontier & ~settled
-    counters = torch.stack([io, dist_c, approx_c, hops_new, counters[:, 4],
-                            counters[:, 5], counters[:, 6]], 1).int()
+    counters = torch.stack([io, dist_c, approx_c, hops_new, faults_c,
+                            retries_c, degraded_c], 1).int()
 
     # ---- 1'. select the NEXT frontier (its fetch follows this step) ----
     cur_ids, cur_live, pool_exp = _select_frontier(pool_ids, pool_key,
@@ -463,7 +507,7 @@ def run_hops(store: RecordStore, codes, mem: InMemory, ctx: QueryCtx,
     mc = _mc(mem, ctx, params)
     rec = _issue(store, st)
     for _ in range(n_hops):
-        st = _hop_step(store, codes, params, ctx, mc, st, rec)
+        st = _hop_step(store, codes, mem, params, ctx, mc, st, rec)
         rec = _issue(store, st)
     return st
 
@@ -529,7 +573,7 @@ def filtered_search(store: RecordStore, codes, codebook, mem: InMemory,
     for _ in range(params.max_hops):
         if not bool(st.active.any()):
             break
-        st = _hop_step(store, codes, params, ctx, mc, st, rec)
+        st = _hop_step(store, codes, mem, params, ctx, mc, st, rec)
         rec = _issue(store, st)
     return _finalize(st, params)
 

@@ -20,7 +20,8 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("hop_fused.cu", "or_scatter.cu", "prune_scan.cu", "pq_scan.cu")
+SOURCES = ("hop_fused.cu", "or_scatter.cu", "prune_scan.cu", "pq_scan.cu",
+           "approx_probe.cu", "l2_rerank.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -34,6 +35,9 @@ SIGNATURES = {
     "prune_scan_launch": [_P] * 3 + [_I, _I, ctypes.c_float, _I, _P],
     "pq_scan_u8_launch": [_P] * 3 + [ctypes.c_longlong, _I, _I, _P],
     "pq_scan_i32_launch": [_P] * 3 + [ctypes.c_longlong, _I, _I, _P],
+    "approx_probe_u8_launch": [_P] * 5 + [ctypes.c_longlong, _I, _P],
+    "approx_probe_i32_launch": [_P] * 5 + [ctypes.c_longlong, _I, _P],
+    "l2_rerank_launch": [_P] * 3 + [ctypes.c_longlong, _I, _P],
 }
 
 _lock = threading.Lock()

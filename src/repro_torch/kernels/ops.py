@@ -18,7 +18,8 @@ import torch
 
 from repro_torch.kernels import ref
 
-LAUNCHES = {"hop_fused": 0, "or_scatter": 0, "prune_scan": 0, "pq_scan": 0}
+LAUNCHES = {"hop_fused": 0, "or_scatter": 0, "prune_scan": 0, "pq_scan": 0,
+            "approx_probe": 0, "l2_rerank": 0}
 
 
 _count_lock = threading.Lock()
@@ -167,4 +168,68 @@ def pq_scan(codes, table):
     _launch(fn, codes.data_ptr(), table.data_ptr(), out.data_ptr(), n, m, k,
             _stream(dev))
     _count("pq_scan")
+    return out
+
+
+def _as_bits(name: str, t: torch.Tensor) -> torch.Tensor:
+    """A uint32 or int32 tensor of 32-bit words as its int32 view."""
+    if t.dtype == torch.uint32:
+        return t.view(torch.int32)
+    if t.dtype != torch.int32:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected uint32 or int32")
+    return t
+
+
+def approx_probe(blooms, buckets, or_masks, params):
+    """Single-field approximate-membership probe over N candidates
+    (the counterpart of ``repro.kernels.ops.approx_probe``): blooms (N,)
+    uint32/int32, buckets (N,) uint8/int32, or_masks (QL <= 8,)
+    uint32/int32, params (8,) int32 -> (N,) bool; see
+    ``ref.approx_probe_ref`` for the param block. N = 0 launches nothing."""
+    if not blooms.is_cuda:
+        return ref.approx_probe_ref(blooms, buckets, or_masks, params)
+    dev = blooms.device
+    n = blooms.shape[0]
+    ql = or_masks.shape[0]
+    bl = _as_bits("blooms", blooms)
+    om = _as_bits("or_masks", or_masks)
+    _check("blooms", bl, torch.int32, (n,), dev)
+    if buckets.dtype not in (torch.uint8, torch.int32):
+        raise TypeError(f"buckets: dtype {buckets.dtype}, expected uint8 or "
+                        "int32")
+    _check("buckets", buckets, buckets.dtype, (n,), dev)
+    _check("or_masks", om, torch.int32, (ql,), dev)
+    _check("params", params, torch.int32, (8,), dev)
+    if ql > 8:
+        raise ValueError(f"approx_probe: {ql} OR masks exceed 8")
+    out = torch.empty((n,), dtype=torch.bool, device=dev)
+    if n == 0:
+        return out
+    fn = "approx_probe_u8_launch" if buckets.dtype == torch.uint8 \
+        else "approx_probe_i32_launch"
+    _launch(fn, bl.data_ptr(), buckets.data_ptr(), om.data_ptr(),
+            params.data_ptr(), out.data_ptr(), n, ql, _stream(dev))
+    _count("approx_probe")
+    return out
+
+
+def l2_rerank(vecs, query):
+    """Squared L2 distances |v|^2 - 2 v.q + |q|^2 of one query to B rows
+    (the counterpart of ``repro.kernels.ops.l2_rerank``): vecs (B, D)
+    float32, query (D,) float32 -> (B,) float32. B = 0 launches nothing."""
+    if not vecs.is_cuda:
+        return ref.l2_rerank_ref(vecs, query)
+    dev = vecs.device
+    b, d = vecs.shape
+    _check("vecs", vecs, torch.float32, (b, d), dev)
+    _check("query", query, torch.float32, (d,), dev)
+    if d * 4 > 48 * 1024:
+        raise ValueError(f"l2_rerank: a query of {d} floats exceeds 48 KB "
+                         "of shared memory")
+    out = torch.empty((b,), dtype=torch.float32, device=dev)
+    if b == 0:
+        return out
+    _launch("l2_rerank_launch", vecs.data_ptr(), query.data_ptr(),
+            out.data_ptr(), b, d, _stream(dev))
+    _count("l2_rerank")
     return out

@@ -192,3 +192,62 @@ def prune_scan_ref(dp_s: torch.Tensor, dcc_s: torch.Tensor, a2: float,
         pruned[:, i] |= act
         nk = nk + act.int()
     return keep
+
+
+def _bits32(t: torch.Tensor) -> torch.Tensor:
+    """32-bit words as int32 bit patterns: uint32 is viewed, not converted,
+    so a word >= 2**31 keeps its bits."""
+    return t.view(torch.int32) if t.dtype == torch.uint32 else t.to(
+        torch.int32)
+
+
+def approx_probe_ref(blooms: torch.Tensor, buckets: torch.Tensor,
+                     or_masks: torch.Tensor,
+                     params: torch.Tensor) -> torch.Tensor:
+    """Single-field approximate-membership probe over N candidates
+    (``repro.kernels.ref.approx_probe_ref``): blooms (N,) uint32/int32 bit
+    words, buckets (N,) uint8/int32, or_masks (QL <= 8,) uint32/int32,
+    params (8,) int32 = [and_mask, n_or_masks, bucket_lo, bucket_hi,
+    label_mode (0 none / 1 and / 2 or), range_on, combine (0 and / 1 or),
+    unused] -> (N,) bool.
+
+    Bits are tested in int32: ``(w & m) == m`` has the same answer on the
+    int32 and the uint32 reading of the same bits. ``params[1]`` is ignored,
+    as in the JAX package: every OR mask is tested and zero masks never
+    hit."""
+    bl = _bits32(blooms)
+    om = _bits32(or_masks)
+    prm = params.to(torch.int32)
+    and_mask = prm[0]
+    and_ok = (bl & and_mask) == and_mask
+    hit_any = ((om[None, :] != 0)
+               & ((bl[:, None] & om[None, :]) == om[None, :])).any(1)
+    label_mode = prm[4]
+    true = torch.ones_like(and_ok)
+    label_ok = torch.where(label_mode == 1, and_ok,
+                           torch.where(label_mode == 2, hit_any, true))
+    label_present = label_mode != 0
+    bk = buckets.to(torch.int32)
+    range_ok = (bk >= prm[2]) & (bk <= prm[3])
+    range_present = prm[5] == 1
+    ok_and = (label_ok | ~label_present) & (range_ok | ~range_present)
+    ok_or = (label_ok & label_present) | (range_ok & range_present)
+    any_present = label_present | range_present
+    return torch.where(any_present, torch.where(prm[6] == 1, ok_or, ok_and),
+                       true)
+
+
+def l2_rerank_ref(vecs: torch.Tensor, query: torch.Tensor) -> torch.Tensor:
+    """Squared L2 distances of one query to B rows, vecs (B, D) float32,
+    query (D,) float32 -> (B,) float32, in the Pallas kernel's form
+    ``|v|^2 - 2 v.q + |q|^2`` (``repro/kernels/l2_rerank.py``), not the
+    ``sum((v - q)^2)`` of ``repro``'s jnp oracle: the two differ in the last
+    bits, and near-duplicate rows can come out slightly negative here, as
+    they do on the TPU. Sums run in PyTorch's order, so this agrees with the
+    kernels within float32 rounding, not bit for bit."""
+    v = vecs.float()
+    q = query.float()
+    vv = (v * v).sum(1)
+    vq = (v * q[None, :]).sum(1)
+    qq = (q * q).sum()
+    return vv - 2.0 * vq + qq

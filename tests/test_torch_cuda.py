@@ -92,6 +92,46 @@ def test_pq_scan_cuda_matches_plain(cuda, n, m, k, dtype):
                            tops.pq_scan(bad, table).view(torch.int32))
 
 
+@pytest.mark.parametrize("n", [1, 999, 100_000])
+@pytest.mark.parametrize("bucket_dtype", [np.uint8, np.int32])
+def test_approx_probe_cuda_matches_plain(cuda, n, bucket_dtype):
+    """Equal to the plain version on every mode combination, with uint32
+    blooms >= 2**31 and both bucket types."""
+    rng = np.random.default_rng(n)
+    blooms = torch.from_numpy(rng.integers(0, 2 ** 32, n, dtype=np.int64)
+                              .astype(np.uint32))
+    buckets = torch.from_numpy(rng.integers(0, 256, n).astype(bucket_dtype))
+    or_masks = torch.from_numpy(np.array(
+        [0, 5, 1 << 31, 0x30, 0, 7, 0x100, 3], np.uint32))
+    for label_mode in (0, 1, 2):
+        for range_on in (0, 1):
+            for combine in (0, 1):
+                params = torch.tensor([0b1010, 8, 50, 200, label_mode,
+                                       range_on, combine, 0],
+                                      dtype=torch.int32)
+                want = tops.approx_probe(blooms, buckets, or_masks, params)
+                got = tops.approx_probe(blooms.to(cuda), buckets.to(cuda),
+                                        or_masks.to(cuda), params.to(cuda))
+                torch.cuda.synchronize()
+                assert torch.equal(got.cpu(), want), (label_mode, range_on,
+                                                      combine)
+
+
+@pytest.mark.parametrize("b,d", [(1, 8), (17, 64), (257, 192), (300, 130),
+                                 (4096, 128)])
+def test_l2_rerank_cuda_matches_plain(cuda, b, d):
+    """Within float32 rounding of the plain version, on the float4 path
+    (D % 4 == 0) and the scalar path (D = 130)."""
+    rng = np.random.default_rng(b * d)
+    vecs = torch.from_numpy(rng.normal(0, 1, (b, d)).astype(np.float32))
+    q = torch.from_numpy(rng.normal(0, 1, d).astype(np.float32))
+    want = tops.l2_rerank(vecs, q)
+    got = tops.l2_rerank(vecs.to(cuda), q.to(cuda))
+    torch.cuda.synchronize()
+    scale = float(((vecs * vecs).sum(1) + (q * q).sum()).max())
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5 * scale)
+
+
 def test_cuda_wrappers_count_and_check(cuda):
     tops.reset_launches()
     words = torch.zeros((2, 4), dtype=torch.int32, device=cuda)
@@ -108,3 +148,16 @@ def test_cuda_wrappers_count_and_check(cuda):
     with pytest.raises(TypeError):
         tops.or_scatter(words.long(), torch.zeros((2, 3), dtype=torch.int32,
                                                   device=cuda))
+    tops.approx_probe(torch.zeros(5, dtype=torch.int32, device=cuda),
+                      torch.zeros(5, dtype=torch.uint8, device=cuda),
+                      torch.zeros(8, dtype=torch.int32, device=cuda),
+                      torch.zeros(8, dtype=torch.int32, device=cuda))
+    assert tops.LAUNCHES["approx_probe"] == 1
+    tops.l2_rerank(torch.zeros((3, 8), device=cuda),
+                   torch.zeros(8, device=cuda))
+    assert tops.LAUNCHES["l2_rerank"] == 1
+    with pytest.raises(ValueError, match="exceed 8"):
+        tops.approx_probe(torch.zeros(5, dtype=torch.int32, device=cuda),
+                          torch.zeros(5, dtype=torch.uint8, device=cuda),
+                          torch.zeros(9, dtype=torch.int32, device=cuda),
+                          torch.zeros(8, dtype=torch.int32, device=cuda))

@@ -130,6 +130,59 @@ def test_scatter_pairs_matches_repro():
         np.testing.assert_array_equal(g, w)
 
 
+def test_apply_pruned_rows_and_write_rows_match_repro():
+    """The row set + reverse scatter of externally pruned rows, and the
+    in-place row write, against repro's donated jitted versions."""
+    rng = np.random.default_rng(9)
+    n, r, b = 60, 6, 12
+    adj = rng.integers(0, n, (n, r)).astype(np.int32)
+    adj[rng.random((n, r)) < 0.4] = -1
+    adj_ext = np.concatenate([adj, np.full((1, r), -1, np.int32)])
+    ids = rng.choice(n, b, replace=False).astype(np.int32)
+    live = rng.random(b) < 0.8
+    rows = rng.integers(-1, n, (b, r)).astype(np.int32)
+    want = [np.asarray(x) for x in jgraph.apply_pruned_rows(
+        jnp.asarray(adj_ext), jnp.asarray(ids), jnp.asarray(live),
+        jnp.asarray(rows))]
+    got = [x.numpy() for x in tgraph.apply_pruned_rows(
+        torch.from_numpy(adj_ext.copy()), torch.from_numpy(ids),
+        torch.from_numpy(live), torch.from_numpy(rows))]
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g, w)
+    buf = rng.normal(0, 1, (20, 3)).astype(np.float32)
+    new = rng.normal(0, 1, (4, 3)).astype(np.float32)
+    want = np.asarray(jgraph.write_rows(jnp.asarray(buf), jnp.asarray(new),
+                                        7))
+    t = torch.from_numpy(buf.copy())
+    assert tgraph.write_rows(t, new, 7) is t           # in place
+    np.testing.assert_array_equal(t.numpy(), want)
+
+
+def test_incremental_builder_matches_repro(data, builds):
+    """Two insert batches through both builders (capacity growth by
+    max(cap + batch, 1.5 cap), then a steady-state batch): equal adjacency
+    and capacity, contiguous ids."""
+    adj_j, med_j, _, _, _ = builds
+    n0 = 1200
+    base, extra = data[:n0], data[n0:]
+    # the first n0 nodes' rows, edges to later nodes dropped
+    adj0 = np.where(adj_j[:n0] < n0, adj_j[:n0], -1).astype(np.int32)
+    jb = jgraph.IncrementalBuilder(base, adj0, med_j % n0, ell=24,
+                                   alpha=1.2, batch=128)
+    tb = tgraph.IncrementalBuilder(base, adj0, med_j % n0, ell=24,
+                                   alpha=1.2, batch=128, device="cpu")
+    for chunk in (extra[:200], extra[200:260]):
+        ids_j = jb.add_batch(chunk)
+        ids_t = tb.add_batch(chunk)
+        np.testing.assert_array_equal(ids_t, ids_j)
+        assert tb.capacity == jb.capacity
+        np.testing.assert_array_equal(tb.adjacency_device.numpy(),
+                                      np.asarray(jb.adjacency_device))
+        np.testing.assert_array_equal(tb.data_device.numpy(),
+                                      np.asarray(jb.data_device))
+    assert tb.capacity == max(n0 + 128, int(n0 * 1.5)) == 1800
+
+
 def test_densify_2hop_matches_repro(builds):
     adj_j = builds[0]
     np.testing.assert_array_equal(tgraph.densify_2hop(adj_j, 100, seed=3),

@@ -2,7 +2,8 @@
 (interpret mode) and its jnp references, on the shape grids of
 tests/test_kernels.py; integers and bools exact, the hop_fused key bitwise.
 
-The CUDA kernels themselves run only on a card: tests/test_torch_cuda.py
+``l2_rerank`` is held with a tolerance: its sums run in another order than
+XLA's. The CUDA kernels themselves run only on a card: tests/test_torch_cuda.py
 holds each against its plain version there.
 """
 import numpy as np
@@ -208,6 +209,115 @@ def test_pq_scan_equals_adc_lookup():
 # dispatch
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# approx_probe
+# ---------------------------------------------------------------------------
+
+def _probe_inputs(rng, n, bucket_dtype, ql=8):
+    """tests/test_kernels.py's generator, with blooms over all 32 bits (so
+    words >= 2**31 occur) and the bucket type given."""
+    blooms = rng.integers(0, 2 ** 32, n, dtype=np.int64).astype(np.uint32)
+    buckets = rng.integers(0, 256, n).astype(bucket_dtype)
+    or_masks = rng.integers(0, 2 ** 16, ql).astype(np.uint32)
+    params = np.array([int(rng.integers(0, 2 ** 16)), ql,
+                       int(rng.integers(0, 128)), int(rng.integers(128, 256)),
+                       int(rng.integers(0, 3)), int(rng.integers(0, 2)),
+                       int(rng.integers(0, 2)), 0], np.int32)
+    return blooms, buckets, or_masks, params
+
+
+def _probe_all(args):
+    """(port plain, repro oracle, repro interpret-mode Pallas) on the same
+    numpy inputs."""
+    got = tops.approx_probe(*(torch.from_numpy(a) for a in args)).numpy()
+    jargs = [jnp.asarray(a) for a in args]
+    return (got, np.asarray(jref.approx_probe_ref(*jargs)),
+            np.asarray(jops.approx_probe_interpret(*jargs)))
+
+
+@pytest.mark.parametrize("n", [1, 64, 999, 2048])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("bucket_dtype", [np.uint8, np.int32])
+def test_approx_probe_matches_repro(n, seed, bucket_dtype):
+    got, oracle, pallas = _probe_all(
+        _probe_inputs(np.random.default_rng(seed), n, bucket_dtype))
+    assert got.dtype == np.bool_
+    np.testing.assert_array_equal(got, oracle)
+    np.testing.assert_array_equal(got, pallas)
+
+
+@pytest.mark.parametrize("label_mode", [0, 1, 2])
+@pytest.mark.parametrize("range_on", [0, 1])
+@pytest.mark.parametrize("combine", [0, 1])
+def test_approx_probe_mode_combos_match_repro(label_mode, range_on, combine):
+    """All 12 mode combinations, with zero OR masks (never hit), a mask of
+    bit 31, an int32 view of the same words, and params[1] = 0 (ignored:
+    every mask is tested)."""
+    rng = np.random.default_rng(7)
+    n = 333
+    blooms = rng.integers(0, 2 ** 32, n, dtype=np.int64).astype(np.uint32)
+    buckets = rng.integers(0, 256, n).astype(np.uint8)
+    or_masks = np.array([0, 0b11, 1 << 31, 0, 0x50, 0b1010, 0, 1],
+                        np.uint32)
+    params = np.array([0b1010, 0, 50, 200, label_mode, range_on, combine, 0],
+                      np.int32)
+    for bl, om in ((blooms, or_masks),
+                   (blooms.view(np.int32), or_masks.view(np.int32))):
+        got, oracle, pallas = _probe_all((bl, buckets, om, params))
+        np.testing.assert_array_equal(got, oracle)
+        np.testing.assert_array_equal(got, pallas)
+
+
+def test_approx_probe_zero_and_mask_admits_all():
+    n = 100
+    rng = np.random.default_rng(3)
+    blooms = rng.integers(0, 2 ** 32, n, dtype=np.int64).astype(np.uint32)
+    params = np.array([0, 0, 0, 255, 1, 0, 0, 0], np.int32)
+    got, oracle, pallas = _probe_all(
+        (blooms, np.zeros(n, np.uint8), np.zeros(8, np.uint32), params))
+    assert got.all()
+    np.testing.assert_array_equal(got, oracle)
+    np.testing.assert_array_equal(got, pallas)
+
+
+# ---------------------------------------------------------------------------
+# l2_rerank
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,d", [(1, 8), (17, 64), (300, 128), (256, 48),
+                                 (257, 192)])
+def test_l2_rerank_matches_repro(b, d):
+    """The plain version against the interpret-mode Pallas kernel (the same
+    |v|^2 - 2 v.q + |q|^2 formula, another summation order) within
+    rtol=atol=1e-5, and against the jnp oracle sum((v - q)^2) within
+    tests/test_kernels.py's rtol=atol=1e-4."""
+    rng = np.random.default_rng(b * d)
+    vecs = rng.normal(0, 1, (b, d)).astype(np.float32)
+    q = rng.normal(0, 1, d).astype(np.float32)
+    got = tops.l2_rerank(torch.from_numpy(vecs), torch.from_numpy(q)).numpy()
+    pallas = np.asarray(jops.l2_rerank_interpret(jnp.asarray(vecs),
+                                                 jnp.asarray(q)))
+    oracle = np.asarray(jref.l2_rerank_ref(jnp.asarray(vecs),
+                                           jnp.asarray(q)))
+    np.testing.assert_allclose(got, pallas, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got, oracle, rtol=1e-4, atol=1e-4)
+
+
+def test_l2_rerank_near_duplicates_not_clamped():
+    """Rows equal to the query cancel to ~0 and may come out negative: the
+    plain version does not clamp (the TPU kernel does not)."""
+    rng = np.random.default_rng(5)
+    q = rng.normal(0, 3, 192).astype(np.float32)
+    vecs = np.stack([q] * 64).astype(np.float32)
+    vecs[1::2] += np.float32(1e-4)
+    got = tops.l2_rerank(torch.from_numpy(vecs), torch.from_numpy(q)).numpy()
+    pallas = np.asarray(jops.l2_rerank_interpret(jnp.asarray(vecs),
+                                                 jnp.asarray(q)))
+    scale = float((q * q).sum()) * 2
+    np.testing.assert_allclose(got, pallas, rtol=1e-5, atol=1e-5 * scale)
+    assert np.abs(got).max() < 1e-3 * scale
+
+
 def test_cpu_dispatch_counts_no_launch():
     """CPU tensors take the plain versions and count no kernel launch."""
     tops.reset_launches()
@@ -219,8 +329,14 @@ def test_cpu_dispatch_counts_no_launch():
     tops.prune_scan(torch.from_numpy(dp), torch.from_numpy(dcc), 1.0, 4)
     tops.pq_scan(torch.zeros((5, 4), dtype=torch.uint8),
                  torch.zeros((4, 16), dtype=torch.float32))
+    tops.approx_probe(torch.zeros(5, dtype=torch.int32),
+                      torch.zeros(5, dtype=torch.uint8),
+                      torch.zeros(8, dtype=torch.int32),
+                      torch.zeros(8, dtype=torch.int32))
+    tops.l2_rerank(torch.zeros((3, 8)), torch.zeros(8))
     assert tops.LAUNCHES == {"hop_fused": 0, "or_scatter": 0,
-                             "prune_scan": 0, "pq_scan": 0}
+                             "prune_scan": 0, "pq_scan": 0,
+                             "approx_probe": 0, "l2_rerank": 0}
 
 
 def test_launch_snapshot_restore():
@@ -230,7 +346,7 @@ def test_launch_snapshot_restore():
     tops._count("pq_scan")
     saved = tops.snapshot()
     assert saved == {"hop_fused": 0, "or_scatter": 0, "prune_scan": 0,
-                     "pq_scan": 1}
+                     "pq_scan": 1, "approx_probe": 0, "l2_rerank": 0}
     tops._count("pq_scan")
     tops._count("hop_fused")
     assert saved["pq_scan"] == 1            # a copy, not a view

@@ -180,25 +180,191 @@ def test_results_valid_and_recall(shared_ds, port):
 
 
 def test_out_of_scope_paths_raise(port, tmp_path):
+    """The disk tier (ROADMAP item 6), sharding (7) and a custom distance
+    function (8) raise, naming their item; checkpoints, inserts and fault
+    plans are ported and covered by tests/test_torch_lifecycle.py and the
+    fault-ladder tests below."""
+    import json
     from repro_torch import api as tapi
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.insert(None, None, None, 0, None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         port.to_disk("x")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="item 6"):
+        port.attach_disk_store(None)
+    with pytest.raises(NotImplementedError, match="item 7"):
         port.shard(2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsearch.SearchParams(l_search=8, fault_plan=object())
-    idx = tapi.Index(port, {}, tapi.Schema())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        idx.save(str(tmp_path / "idx"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tapi.Index.load(str(tmp_path / "idx"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        idx.insert(np.zeros((1, 4), np.float32), [{}])
+    with pytest.raises(NotImplementedError, match="item 8"):
+        tsearch.check_distance_fn(lambda c, t: None)
     vecs = np.zeros((4, 8), np.float32)
     meta = [{"cat": 1}] * 4
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         tapi.Index.build(vecs, meta, store="disk", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="item 7"):
         tapi.Index.build(vecs, meta, shards=2, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 7"):
+        tapi.Index.load(str(tmp_path / "idx"), shards=2)
+    # a checkpoint of the JAX package's disk backend
+    step = tmp_path / "disk" / "step_0"
+    step.mkdir(parents=True)
+    (step / "index_meta.json").write_text(json.dumps({"backend": "disk"}))
+    with pytest.raises(NotImplementedError, match="item 6"):
+        tapi.Index.load(str(tmp_path / "disk"), device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# The read-fault ladder (core/faults.py, the hop step's retry → hedge →
+# degrade) against tests/test_faults.py's plans
+# ---------------------------------------------------------------------------
+
+FAULT_PLANS = {
+    "rate0.1_seed7": dict(seed=7, read_fail_rate=0.1),
+    "ladder_off_rate0.5": dict(seed=7, read_fail_rate=0.5, max_retries=0,
+                               hedge=False),
+}
+
+
+@pytest.mark.parametrize("stream,attempt", [(1, 0), (2, 3), (3, 0)])
+@pytest.mark.parametrize("seed", [0, 7, 2 ** 31 + 5])
+def test_fault_draws_match_repro(stream, attempt, seed):
+    """``_uniform`` bit for bit on ids and hops spanning [0, 2**32) (int32
+    views of uint32 values, so ids >= 2**31 come in negative)."""
+    from repro.core import faults as jf
+    from repro_torch.core import faults as tf
+    rng = np.random.default_rng(seed % 1000 + stream)
+    ids = rng.integers(0, 2 ** 32, (32, 8), dtype=np.int64).astype(np.uint32)
+    ids[0, :4] = [0, 2 ** 31 - 1, 2 ** 31, 2 ** 32 - 1]
+    hops = rng.integers(0, 2 ** 32, (32, 1), dtype=np.int64).astype(np.uint32)
+    want = np.asarray(jf._uniform(jnp.asarray(ids), jnp.asarray(hops), seed,
+                                  stream, attempt))
+    got = tf._uniform(torch.from_numpy(ids.view(np.int32)),
+                      torch.from_numpy(hops.view(np.int32)), seed, stream,
+                      attempt).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("attempt", [0, 2])
+def test_read_attempt_bad_and_spike_match_repro(attempt):
+    from repro.core import faults as jf
+    from repro_torch.core import faults as tf
+    rng = np.random.default_rng(attempt)
+    ids = rng.integers(0, 2 ** 32, (16, 64), dtype=np.int64).astype(np.uint32)
+    hops = rng.integers(0, 2 ** 32, (16, 1), dtype=np.int64).astype(np.uint32)
+    kw = dict(seed=11, read_fail_rate=0.3, corrupt_rate=0.1, spike_rate=0.2)
+    jp, tp = jf.FaultPlan(**kw), tf.FaultPlan(**kw)
+    ji, jh = jnp.asarray(ids), jnp.asarray(hops)
+    ti = torch.from_numpy(ids.view(np.int32))
+    th = torch.from_numpy(hops.view(np.int32))
+    want = np.asarray(jf.read_attempt_bad(ji, jh, attempt, jp))
+    np.testing.assert_array_equal(
+        tf.read_attempt_bad(ti, th, attempt, tp).numpy(), want)
+    np.testing.assert_array_equal(tf.read_spike(ti, th, tp).numpy(),
+                                  np.asarray(jf.read_spike(ji, jh, jp)))
+
+
+def test_parse_plan_matches_repro():
+    from repro.core import faults as jf
+    from repro_torch.core import faults as tf
+    for spec in ("rate=0.1,seed=7,max_retries=2,hedge=1",
+                 "rate=0.25,seed=7,max_retries=1,hedge=0,corrupt_rate=0.1"):
+        assert tf.parse_plan(spec).to_json() == jf.parse_plan(spec).to_json()
+    p = tf.parse_plan("rate=0.1,seed=7,max_retries=2,hedge=1")
+    assert tf.FaultPlan.from_json(p.to_json()) == p
+    assert p.attempts == 4 and p.reads_faulty
+    with pytest.raises(ValueError, match="unknown FaultPlan field"):
+        tf.parse_plan("nope=1")
+    with pytest.raises(AssertionError):
+        tf.FaultPlan(read_fail_rate=1.5)
+
+
+def _fault_pair(ds, e, pe, mode, plan_kw):
+    from repro.core.faults import FaultPlan as JPlan
+    from repro_torch.core.faults import FaultPlan as TPlan
+    nq = ds.queries.shape[0]
+    sels = make_sliding_range_selectors(e, 0.30, nq)
+    tsels = t_make_sliding(pe, 0.30, nq)
+    qf = stack_filters([s.plan(e.config.ql, e.config.cap).qfilter
+                        for s in sels])
+    tqf = t_stack_filters([s.plan(pe.config.ql, pe.config.cap).qfilter
+                           for s in tsels])
+    kw = dict(l_search=48, k=10, max_hops=200, beam_width=2, mode=mode,
+              l_valid=32)
+    jp = search_mod.SearchParams(**kw, fault_plan=JPlan(**plan_kw))
+    tp = tsearch.SearchParams(**kw, fault_plan=TPlan(**plan_kw))
+    entries = _entries(e, sels, mode)
+    want = search_mod.filtered_search_pipelined(
+        e.store, e.codes, e.codebook, e.mem, qf, jnp.asarray(ds.queries),
+        e.medoid, jp,
+        entries=None if entries is None else jnp.asarray(entries))
+    got = tsearch.filtered_search_pipelined(
+        pe.store, pe.codes, pe.codebook, pe.mem, tqf, ds.queries, pe.medoid,
+        tp, entries=entries)
+    return want, got
+
+
+@pytest.mark.parametrize("mode", ["post", "spec_in", "strict_in"])
+@pytest.mark.parametrize("plan", sorted(FAULT_PLANS))
+def test_fault_plan_matches_repro(shared_ds, shared_engine, port, mode,
+                                  plan):
+    """Every SearchResult field per query equal to repro's under the
+    committed 10% plan and under the ladder-off plan at rate 0.5 (W=2, as
+    tests/test_faults.py runs it)."""
+    want, got = _fault_pair(shared_ds, shared_engine, port, mode,
+                            FAULT_PLANS[plan])
+    _assert_same(want, got, f"{mode}/{plan}")
+    assert int(got.faults.sum()) > 0
+    if plan.startswith("ladder_off"):
+        assert int(got.degraded.sum()) > 0
+        assert int(got.retries.sum()) == 0
+
+
+@pytest.mark.parametrize("mode", ["post", "spec_in", "strict_in"])
+def test_zero_rate_plan_bit_identical(shared_ds, port, mode):
+    """A plan whose rates are all zero leaves every field bit-identical to
+    no plan."""
+    from repro_torch.core.faults import FaultPlan
+    ds, pe = shared_ds, port
+    nq = ds.queries.shape[0]
+    sels = t_make_sliding(pe, 0.30, nq)
+    qf = t_stack_filters([s.plan(pe.config.ql, pe.config.cap).qfilter
+                          for s in sels])
+    ents = None
+    if mode == "strict_in":
+        ents = np.full((nq, 4), -1, np.int32)
+        for j, s in enumerate(sels):
+            seeds, _ = teng._strict_seed_ids(s, pe.medoid, 4)
+            ents[j, :seeds.size] = seeds
+    res = []
+    for plan in (None, FaultPlan(seed=42)):
+        p = tsearch.SearchParams(l_search=48, k=10, max_hops=200,
+                                 beam_width=2, mode=mode, l_valid=32,
+                                 fault_plan=plan)
+        res.append(tsearch.filtered_search_pipelined(
+            pe.store, pe.codes, pe.codebook, pe.mem, qf, ds.queries,
+            pe.medoid, p, entries=ents))
+    for f in tsearch.SearchResult._fields:
+        assert torch.equal(getattr(res[0], f), getattr(res[1], f)), f
+    assert int(res[1].faults.sum()) == 0
+
+
+def test_engine_fault_counters_match_repro(shared_ds, shared_engine, port):
+    """SearchConfig.fault_plan flows through the routed engine into
+    QueryStats, equal to repro's; the 'pre' route draws no faults."""
+    from repro.core.faults import parse_plan as j_parse
+    from repro_torch.core.faults import parse_plan as t_parse
+    ds, e, pe = shared_ds, shared_engine, port
+    spec = "rate=0.1,seed=7,max_retries=2,hedge=1"
+    sels, tsels = [], []
+    for wl in ("label", "range", "hybrid"):
+        sels += make_selectors(ds, e, wl, n_queries=4)
+        tsels += t_make_selectors(ds, pe, wl, n_queries=4)
+    queries = np.concatenate([ds.queries[:4]] * 3)
+    want = e.search(queries, sels, eng.SearchConfig(fault_plan=j_parse(spec)))
+    got = pe.search(queries, tsels,
+                    teng.SearchConfig(fault_plan=t_parse(spec)))
+    assert got[2].mechanism == want[2].mechanism
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-6, atol=1e-6)
+    for f in ("io_pages", "hops", "explored", "n_valid", "faults",
+              "retries", "degraded"):
+        np.testing.assert_array_equal(getattr(got[2], f),
+                                      getattr(want[2], f), err_msg=f)
+    assert got[2].faults.sum() > 0
