@@ -15,6 +15,10 @@ Phases, each printing one JSON line:
    or_scatter words equal, prune_scan keep mask equal), and times both with
    CUDA events; for pq_scan also one PyTorch call that computes the same
    function (``embedding_bag``), timed as a yardstick and used nowhere else.
+   hop_fused is held in both entries: the slab and the gathered one (ids
+   over stores of 1M rows, which the hop step launches); prune_scan also on
+   rows where nothing prunes (every row keeps r = 32); ``launch_floor`` is
+   the device time of one minimal launch through a wrapper.
 3. card vs CPU — builds an index on the card over the test corpus, copies
    it to the CPU with ``FilteredANNEngine.from_arrays`` and runs the same
    label / range / hybrid queries on both: routes, ids and integer counters
@@ -61,7 +65,9 @@ fault plan on both and saves on the card to load on the CPU.
 
 Then a ``kernels`` line (launches of hop_fused, or_scatter and prune_scan
 from phase 4, of pq_scan from phase 5, of approx_probe and l2_rerank from
-phase 6; times from phase 2), the card's name and power limit as
+phase 6; times from phase 2: hop_fused's of the gathered entry with the slab
+entry's beside it, prune_scan's with the no-prune row beside it, and the
+launch floor), the card's name and power limit as
 ``nvidia-smi`` prints them, and last the result line. It exits non-zero,
 printing no result, when there is no CUDA device or the port's sources are
 missing; any failed check raises.
@@ -200,6 +206,39 @@ def kernel_phase(dev) -> dict:
         shape=[b, c, m], max_abs_err=float((key_k - key_p).abs().max()),
         bound_ms=bms, bound_by=by)
 
+    # hop_fused, the gathered entry the hop step launches: the same shape,
+    # ids drawn uniformly over stores of N = 1,000,000 rows and a rare-list
+    # bitmap of ceil((N+1)/32) words per query
+    n = 1_000_000
+    nw = (n + 1 + 31) // 32
+    gargs = [
+        torch.from_numpy(rng.integers(0, k, (n, m)).astype(np.uint8)),
+        torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, n, dtype=np.int64)
+                         .astype(np.int32)),
+        torch.from_numpy(rng.integers(0, 256, (n, f)).astype(np.int32)),
+        torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (b, nw),
+                                      dtype=np.int64).astype(np.int32)),
+        torch.from_numpy(rng.integers(0, n, (b, c)).astype(np.int32)),
+    ]
+    gargs = [a.to(dev) for a in gargs] + targs[4:]
+    key_k, ok_k = ops.hop_fused_gather(*gargs)
+    key_p, ok_p = ref.hop_fused_gather_ref(*gargs)
+    torch.cuda.synchronize()
+    assert torch.equal(ok_k, ok_p), "hop_fused/gather: ok differs"
+    assert torch.equal(key_k.view(torch.int32), key_p.view(torch.int32)), \
+        "hop_fused/gather: key not bit-identical"
+    # ids, the gathered rows (code row, bloom word, bucket words), one
+    # rare-list word per candidate, the tables and parameters, the outputs
+    nbytes = (b * c * 4 + b * c * (m + 4 + 4 * f) + b * c * 4
+              + b * m * k * 4 + b * (4 + ql + 3 * nr) * 4 + b * c * 5)
+    bms, by = bound(nbytes, b * c * m)
+    out["hop_fused/gather"] = timed(
+        lambda: ops.hop_fused_gather(*gargs),
+        lambda: ref.hop_fused_gather_ref(*gargs), shape=[b, c, m, n],
+        max_abs_err=float((key_k - key_p).abs().max()), bound_ms=bms,
+        bound_by=by)
+    del gargs
+
     # or_scatter: the visited set at N=1M (64, 32768 words) with one hop's
     # W·R = 32 slots, and the rare-list bitmap (64, ceil((N+1)/32)) with
     # CAP = 2048 slots
@@ -243,6 +282,37 @@ def kernel_phase(dev) -> dict:
                 shape=[b, c], kept=kept,
                 max_abs_err=float((got.int() - want.int()).abs().max()),
                 bound_ms=bms, bound_by=by)
+
+    # prune_scan where no lane prunes another (a2·dcc > dp off the
+    # diagonal), so every row keeps r = 32: the disconnected build's case
+    # and the longest chain of kept lanes
+    b, c, a2 = 1024, 96, 1.44
+    dp = np.sort(rng.uniform(1, 2, (b, c)).astype(np.float32), 1)
+    dcc = (3 + np.abs(rng.normal(0, 1, (b, c, c)))).astype(np.float32)
+    dcc[:, np.arange(c), np.arange(c)] = 0.0
+    tdp, tdcc = (torch.from_numpy(x).to(dev) for x in (dp, dcc))
+    got = ops.prune_scan(tdp, tdcc, a2, 32)
+    want = ref.prune_scan_ref(tdp, tdcc, a2, 32)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), "prune_scan (no prune) differs"
+    kept = int(got.sum())
+    assert kept == 32 * b, f"prune_scan (no prune): {kept} kept"
+    bms, by = bound(b * c * 4 + kept * c * 4 + b * c, 2 * kept * c)
+    out["prune_scan/C96/noprune"] = timed(
+        lambda: ops.prune_scan(tdp, tdcc, a2, 32),
+        lambda: ref.prune_scan_ref(tdp, tdcc, a2, 32), shape=[b, c],
+        kept=kept, max_abs_err=float((got.int() - want.int()).abs().max()),
+        bound_ms=bms, bound_by=by)
+
+    # what the card charges for any launch through a wrapper: one kernel
+    # with one thread of work and one round trip to memory (approx_probe
+    # on one row launches one kernel and nothing else)
+    one = [torch.zeros(n, dtype=dt, device=dev)
+           for n, dt in ((1, torch.int32), (1, torch.uint8), (8, torch.int32),
+                         (8, torch.int32))]
+    floor_ms, floor_call_ms = time_ms(lambda: ops.approx_probe(*one))
+    out["launch_floor"] = {"via": "ops.approx_probe on one row",
+                           "ms": floor_ms, "call_ms": floor_call_ms}
 
     # pq_scan: the gated full-corpus scan (N = 1M rows) and a pre-route
     # candidate set (50,000 rows), M=16 uint8 codes, K=256
@@ -1098,7 +1168,8 @@ def lifecycle_phase(index, ds, dev) -> dict:
 # ---------------------------------------------------------------------------
 
 KERNELS = {
-    "hop_fused": ("hop_fused", "src/repro_torch/kernels/csrc/hop_fused.cu",
+    "hop_fused": ("hop_fused/gather",
+                  "src/repro_torch/kernels/csrc/hop_fused.cu",
                   "src/repro/kernels/hop_fused.py:142"),
     "or_scatter": ("or_scatter/visited",
                    "src/repro_torch/kernels/csrc/or_scatter.cu",
@@ -1115,6 +1186,10 @@ KERNELS = {
                   "src/repro_torch/kernels/csrc/l2_rerank.cu",
                   "src/repro/kernels/l2_rerank.py:35"),
 }
+# phase-2 rows reported beside a kernel's own: the slab entry of hop_fused
+# (the main path launches the gathered one), the no-prune row of prune_scan
+BESIDE = {"hop_fused": ("hop_fused",),
+          "prune_scan": ("prune_scan/C96/noprune",)}
 # the phase whose run counts each kernel's launches
 LAUNCH_PHASE = {"hop_fused": "full", "or_scatter": "full",
                 "prune_scan": "full", "pq_scan": "serve",
@@ -1196,7 +1271,12 @@ def main(argv=None) -> int:
                      "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
                      "library_ms": r.get("library_ms")})
+        rows[-1]["beside"] = {
+            b: {x: kern["results"][b].get(x)
+                for x in ("shape", "ms", "plain_ms", "bound_ms", "kept")}
+            for b in BESIDE.get(name, ())}
     emit({"kernels": rows, "n_full": full["n"], "n_cuts": cuts,
+          "launch_floor_ms": kern["results"]["launch_floor"]["ms"],
           "full_phase_s": full["seconds"], "serve_phase_s": serve["seconds"],
           "ops_phase_s": opsr["seconds"], "lifecycle_phase_s": life["seconds"],
           "seconds": time.perf_counter() - t_start})

@@ -10,8 +10,10 @@ Modes
 -----
 * ``post``      — plain traversal; validity is checked only at verification.
 * ``spec_in``   — speculative in-filtering: direct + 2-hop neighbors are
-                  screened by the fused hop kernel (``kernels.ops.hop_fused``:
-                  ADC distance, Bloom/bucket membership, penalty key); up to R
+                  screened by the fused hop kernel
+                  (``kernels.ops.hop_fused_gather``, which gathers their
+                  rows itself: ADC distance, Bloom/bucket membership,
+                  penalty key); up to R
                   approx-valid neighbors are kept per hop, back-filled with
                   invalid *direct* neighbors (bridge nodes).
 * ``strict_in`` — the strict baseline: every neighbor's exact attributes are
@@ -403,16 +405,16 @@ def _hop_step(store, codes, mem, params, ctx, mc, st, rec) -> HopState:
     fresh = live & ~seen & first
 
     # ---- 5. fused candidate pass (distance + membership + key) ----
-    sc = safe_cand.long()
     if p.mode == "post":
         ok = fresh
         key_slab = _slab_pq(codes, safe_cand, tables)
         approx_c = counters[:, 2]
     elif p.mode == "spec_in":
         bl_i32, bc_i32, (f_scal, f_om, f_rf, f_blo, f_bhi) = mc
-        in_merged = _bit_test(merged_tbl, safe_cand)
-        key_slab, ok_approx = kops.hop_fused(
-            codes[sc], bl_i32[sc], bc_i32[sc], in_merged, tables, f_scal,
+        # the kernel gathers each candidate's code row, bloom word, bucket
+        # words and rare-list bit itself
+        key_slab, ok_approx = kops.hop_fused_gather(
+            codes, bl_i32, bc_i32, merged_tbl, safe_cand, tables, f_scal,
             f_om, f_rf, f_blo, f_bhi)
         ok = ok_approx & fresh
         approx_c = counters[:, 2] + live.sum(1, dtype=torch.int32)

@@ -31,6 +31,8 @@ _I = ctypes.c_int
 # argtypes of each entry point: every pointer and the stream as c_void_p
 SIGNATURES = {
     "hop_fused_launch": [_P] * 12 + [_I] * 7 + [_P],
+    "hop_fused_gather_launch": [_P] * 13 + [ctypes.c_longlong] + [_I] * 8
+    + [_P],
     "or_scatter_launch": [_P] * 3 + [_I] * 3 + [_P],
     "prune_scan_launch": [_P] * 3 + [_I, _I, ctypes.c_float, _I, _P],
     "pq_scan_u8_launch": [_P] * 3 + [ctypes.c_longlong, _I, _I, _P],

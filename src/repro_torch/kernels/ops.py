@@ -71,6 +71,36 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _check_hop_params(b, m, table, scalars, or_masks, range_field,
+                      bucket_lo, bucket_hi, dev) -> None:
+    """The per-query inputs of both ``hop_fused`` entries: the table is
+    staged by one bulk copy, so it must start on 16 bytes and span a
+    multiple of 16 bytes."""
+    k = table.shape[-1]
+    nr = range_field.shape[-1]
+    _check("table", table, torch.float32, (b, m, k), dev)
+    _check("scalars", scalars, torch.int32, (b, 4), dev)
+    _check("or_masks", or_masks, torch.int32, (b, or_masks.shape[-1]), dev)
+    for name, t in (("range_field", range_field), ("bucket_lo", bucket_lo),
+                    ("bucket_hi", bucket_hi)):
+        _check(name, t, torch.int32, (b, nr), dev)
+    if m * k * 4 + 16 > 48 * 1024:
+        raise ValueError(f"hop_fused: table of {m}x{k} exceeds 48 KB of "
+                         "shared memory")
+    if (m * k) % 4 or table.data_ptr() % 16:
+        raise ValueError("hop_fused: the table must start on 16 bytes and "
+                         "hold a multiple of 4 floats per query")
+
+
+def _check_code_rows(codes, m) -> None:
+    """Rows of M = 4, 8 or 16 codes are read as one vector load each, which
+    needs the rows' start aligned to the load's width."""
+    width = m if m in (4, 8, 16) else 1
+    if codes.data_ptr() % width:
+        raise ValueError(f"hop_fused: code rows of {m} bytes must start on "
+                         f"{width} bytes")
+
+
 def hop_fused(codes_slab, blooms, buckets, in_merged, table, scalars,
               or_masks, range_field, bucket_lo, bucket_hi):
     """Fused hop candidate pass (B, C) slab -> (key (B, C) f32, ok (B, C)
@@ -81,30 +111,65 @@ def hop_fused(codes_slab, blooms, buckets, in_merged, table, scalars,
                                  bucket_lo, bucket_hi)
     dev = codes_slab.device
     b, c, m = codes_slab.shape
-    k = table.shape[-1]
     f = buckets.shape[-1]
-    ql = or_masks.shape[-1]
-    nr = range_field.shape[-1]
     _check("codes_slab", codes_slab, torch.uint8, (b, c, m), dev)
     _check("blooms", blooms, torch.int32, (b, c), dev)
     _check("buckets", buckets, torch.int32, (b, c, f), dev)
     _check("in_merged", in_merged, torch.bool, (b, c), dev)
-    _check("table", table, torch.float32, (b, m, k), dev)
-    _check("scalars", scalars, torch.int32, (b, 4), dev)
-    _check("or_masks", or_masks, torch.int32, (b, ql), dev)
-    for name, t in (("range_field", range_field), ("bucket_lo", bucket_lo),
-                    ("bucket_hi", bucket_hi)):
-        _check(name, t, torch.int32, (b, nr), dev)
-    if m * k * 4 > 48 * 1024:
-        raise ValueError(f"hop_fused: table of {m}x{k} exceeds 48 KB of "
-                         "shared memory")
+    _check_hop_params(b, m, table, scalars, or_masks, range_field, bucket_lo,
+                      bucket_hi, dev)
+    _check_code_rows(codes_slab, m)
     key = torch.empty((b, c), dtype=torch.float32, device=dev)
     ok = torch.empty((b, c), dtype=torch.bool, device=dev)
     _launch("hop_fused_launch", codes_slab.data_ptr(), blooms.data_ptr(),
             buckets.data_ptr(), in_merged.data_ptr(), table.data_ptr(),
             scalars.data_ptr(), or_masks.data_ptr(), range_field.data_ptr(),
             bucket_lo.data_ptr(), bucket_hi.data_ptr(), key.data_ptr(),
-            ok.data_ptr(), b, c, m, k, f, ql, nr, _stream(dev))
+            ok.data_ptr(), b, c, m, table.shape[-1], f, or_masks.shape[-1],
+            range_field.shape[-1], _stream(dev))
+    _count("hop_fused")
+    return key, ok
+
+
+def hop_fused_gather(codes, blooms, buckets, merged_words, ids, table,
+                     scalars, or_masks, range_field, bucket_lo, bucket_hi):
+    """The fused hop pass gathering its own candidate rows: codes (N, M)
+    uint8, blooms (N,) int32, buckets (N, F) int32 (the stores as
+    ``selectors.kernel_view`` gives them), merged_words (B, NW) int32 rare-
+    list bitmaps with NW * 32 >= N, ids (B, C) int32 -> (key (B, C) f32,
+    ok (B, C) bool), equal to ``hop_fused`` on the slab ``codes[ids]``,
+    ``blooms[ids]``, ``buckets[ids]``, bit ``ids`` of ``merged_words``. An
+    id outside [0, N) gives key +inf and ok False. Launches count under
+    ``hop_fused``."""
+    n, m = codes.shape
+    nw = merged_words.shape[-1]
+    if nw * 32 < n:
+        raise ValueError(f"hop_fused_gather: {nw} bitmap words do not "
+                         f"cover {n} ids")
+    if not codes.is_cuda:
+        return ref.hop_fused_gather_ref(codes, blooms, buckets, merged_words,
+                                        ids, table, scalars, or_masks,
+                                        range_field, bucket_lo, bucket_hi)
+    dev = codes.device
+    b, c = ids.shape
+    f = buckets.shape[-1]
+    _check("codes", codes, torch.uint8, (n, m), dev)
+    _check("blooms", blooms, torch.int32, (n,), dev)
+    _check("buckets", buckets, torch.int32, (n, f), dev)
+    _check("merged_words", merged_words, torch.int32, (b, nw), dev)
+    _check("ids", ids, torch.int32, (b, c), dev)
+    _check_hop_params(b, m, table, scalars, or_masks, range_field, bucket_lo,
+                      bucket_hi, dev)
+    _check_code_rows(codes, m)
+    key = torch.empty((b, c), dtype=torch.float32, device=dev)
+    ok = torch.empty((b, c), dtype=torch.bool, device=dev)
+    _launch("hop_fused_gather_launch", codes.data_ptr(), blooms.data_ptr(),
+            buckets.data_ptr(), merged_words.data_ptr(), ids.data_ptr(),
+            table.data_ptr(), scalars.data_ptr(), or_masks.data_ptr(),
+            range_field.data_ptr(), bucket_lo.data_ptr(),
+            bucket_hi.data_ptr(), key.data_ptr(), ok.data_ptr(), n, nw, b, c,
+            m, table.shape[-1], f, or_masks.shape[-1], range_field.shape[-1],
+            _stream(dev))
     _count("hop_fused")
     return key, ok
 
@@ -135,7 +200,8 @@ def prune_scan(dp_s, dcc_s, a2: float, r: int):
     _check("dp_s", dp_s, torch.float32, (b, c), dev)
     _check("dcc_s", dcc_s, torch.float32, (b, c, c), dev)
     if c > 1024:
-        raise ValueError(f"prune_scan: {c} candidates exceed one block")
+        raise ValueError(f"prune_scan: {c} candidates exceed 1024 (32 "
+                         "columns for each lane of a warp)")
     keep = torch.empty((b, c), dtype=torch.bool, device=dev)
     _launch("prune_scan_launch", dp_s.data_ptr(), dcc_s.data_ptr(),
             keep.data_ptr(), b, c, float(a2), int(r), _stream(dev))

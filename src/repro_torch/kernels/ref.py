@@ -142,6 +142,25 @@ def hop_fused_ref(codes_slab, blooms, buckets, in_merged, table, scalars,
     return d + penalty, ok
 
 
+def hop_fused_gather_ref(codes, blooms, buckets, merged_words, ids, table,
+                         scalars, or_masks, range_field, bucket_lo,
+                         bucket_hi):
+    """``hop_fused_ref`` on the slab that ``ids`` (B, C) int32 gathers from
+    the stores: codes (N, M) uint8, blooms (N,) int32, buckets (N, F)
+    int32, and bit ``ids[b, c]`` of query b's rare-list bitmap
+    ``merged_words`` (B, NW) int32. An id outside [0, N) gives key +inf and
+    ok False (its row is not read)."""
+    n = codes.shape[0]
+    bad = (ids < 0) | (ids >= n)
+    safe = torch.where(bad, 0, ids).long()
+    words = torch.gather(merged_words, 1, safe >> 5)
+    in_merged = ((words >> (safe & 31)) & 1).bool()
+    key, ok = hop_fused_ref(codes[safe], blooms[safe], buckets[safe],
+                            in_merged, table, scalars, or_masks, range_field,
+                            bucket_lo, bucket_hi)
+    return torch.where(bad, float("inf"), key), ok & ~bad
+
+
 def or_scatter_ref(words: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
     """Row-wise bitmap OR-scatter, out of place: set bit ``slots[b, j]`` in
     word ``slots[b, j] >> 5`` of row b for every in-range slot; slots < 0 or

@@ -11,7 +11,9 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops as tops
-from torch_port_helpers import hop_inputs, or_inputs, prune_inputs
+from torch_port_helpers import (PRUNE_KINDS, gather_inputs, gathered_slab,
+                                hop_inputs, or_inputs, prune_edge_inputs,
+                                prune_inputs)
 
 
 @pytest.fixture
@@ -22,15 +24,74 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("b,c", [(1, 7), (64, 512)])
-def test_hop_fused_cuda_matches_plain(cuda, b, c):
-    rng = np.random.default_rng(b + c)
-    args = [torch.from_numpy(a) for a in hop_inputs(rng, b, c, m=16)]
-    key_p, ok_p = tops.hop_fused(*args)
-    key_k, ok_k = tops.hop_fused(*(a.to(cuda) for a in args))
+def _same(got, want):
+    """Two (key, ok) pairs, the first on the card: ok equal, key bits
+    equal."""
     torch.cuda.synchronize()
-    assert torch.equal(ok_k.cpu(), ok_p)
-    assert torch.equal(key_k.cpu().view(torch.int32), key_p.view(torch.int32))
+    assert torch.equal(got[1].cpu(), want[1])
+    assert torch.equal(got[0].cpu().view(torch.int32),
+                       want[0].view(torch.int32))
+
+
+@pytest.mark.parametrize("b,c", [(1, 7), (3, 33), (64, 512)])
+@pytest.mark.parametrize("m", [16, 8, 4, 32, 5])
+def test_hop_fused_cuda_matches_plain(cuda, b, c, m):
+    """The slab entry on the vector-load paths (M = 4, 8, 16, 32) and the
+    byte path (M = 5)."""
+    rng = np.random.default_rng(b + c + m)
+    args = [torch.from_numpy(a) for a in hop_inputs(rng, b, c, m=m)]
+    _same(tops.hop_fused(*(a.to(cuda) for a in args)), tops.hop_fused(*args))
+
+
+@pytest.mark.parametrize("b,c", [(1, 7), (3, 33), (64, 512), (2, 1100)])
+@pytest.mark.parametrize("m", [16, 8, 5])
+@pytest.mark.parametrize("merged_mode", [1, 2])
+def test_hop_fused_gather_cuda_matches_plain(cuda, b, c, m, merged_mode):
+    """The gathered entry against its plain version and against the slab
+    entry on the slab it gathers (C = 1100 loops over the block)."""
+    rng = np.random.default_rng(b * c + m)
+    args = gather_inputs(rng, b, c, 5000, m=m, merged_mode=merged_mode)
+    targs = [torch.from_numpy(a) for a in args]
+    got = tops.hop_fused_gather(*(a.to(cuda) for a in targs))
+    _same(got, tops.hop_fused_gather(*targs))
+    _same(got, tops.hop_fused(*(torch.from_numpy(a)
+                                for a in gathered_slab(args))))
+
+
+def test_hop_fused_gather_cuda_out_of_range_ids(cuda):
+    """An id outside [0, N) reads nothing and writes key +inf, ok False, as
+    the plain version does; the other candidates are unchanged."""
+    rng = np.random.default_rng(8)
+    targs = [torch.from_numpy(a) for a in gather_inputs(rng, 4, 300, 777,
+                                                        m=16)]
+    ids = targs[4]
+    ids[0, :5] = -1
+    ids[1, 7] = 777
+    ids[2, ::2] = 2 ** 31 - 1
+    ids[3, 9] = -2 ** 31
+    got = tops.hop_fused_gather(*(a.to(cuda) for a in targs))
+    _same(got, tops.hop_fused_gather(*targs))
+    bad = ((ids < 0) | (ids >= 777)).to(cuda)
+    assert torch.isinf(got[0][bad]).all() and not got[1][bad].any()
+
+
+def test_hop_fused_cuda_refuses_misaligned(cuda):
+    """Vector loads need aligned rows and the bulk copy an aligned table:
+    the wrappers refuse views that break either."""
+    rng = np.random.default_rng(4)
+    args = [torch.from_numpy(a).to(cuda) for a in hop_inputs(rng, 2, 8,
+                                                             m=16)]
+    flat = torch.zeros(2 * 8 * 16 + 1, dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="must start on 16 bytes"):
+        tops.hop_fused(flat[1:].view(2, 8, 16), *args[1:])
+    ftab = torch.zeros(args[4].numel() + 1, device=cuda)
+    with pytest.raises(ValueError, match="table must start on 16"):
+        tops.hop_fused(*args[:4], ftab[1:].view(args[4].shape), *args[5:])
+    gargs = [torch.from_numpy(a).to(cuda)
+             for a in gather_inputs(rng, 2, 8, 100, m=8)]
+    codes = torch.zeros(100 * 8 + 4, dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="must start on 8 bytes"):
+        tops.hop_fused_gather(codes[4:].view(100, 8), *gargs[1:])
 
 
 def test_hop_fused_cuda_out_of_range_field(cuda):
@@ -58,14 +119,41 @@ def test_or_scatter_cuda_matches_plain(cuda, b, nw, c):
     assert torch.equal(got.cpu(), tops.or_scatter(w, s))
 
 
-@pytest.mark.parametrize("c", [40, 74, 96])
+PRUNE_C = [1, 33, 40, 74, 96, 128, 200, 1024]
+
+
+@pytest.mark.parametrize("c", PRUNE_C)
+@pytest.mark.parametrize("r", [1, 8, 32, "C"])
 @pytest.mark.parametrize("alpha", [1.0, 1.2])
-def test_prune_scan_cuda_matches_plain(cuda, c, alpha):
+def test_prune_scan_cuda_matches_plain(cuda, c, r, alpha):
     rng = np.random.default_rng(c)
-    dp, dcc = (torch.from_numpy(a) for a in prune_inputs(rng, 256, c))
-    got = tops.prune_scan(dp.to(cuda), dcc.to(cuda), alpha * alpha, 32)
+    r = c if r == "C" else r
+    rows = 256 if c <= 128 else 8
+    dp, dcc = (torch.from_numpy(a) for a in prune_inputs(rng, rows, c))
+    got = tops.prune_scan(dp.to(cuda), dcc.to(cuda), alpha * alpha, r)
     torch.cuda.synchronize()
-    assert torch.equal(got.cpu(), tops.prune_scan(dp, dcc, alpha * alpha, 32))
+    assert torch.equal(got.cpu(), tops.prune_scan(dp, dcc, alpha * alpha, r))
+
+
+@pytest.mark.parametrize("c", PRUNE_C)
+@pytest.mark.parametrize("kind", PRUNE_KINDS + ("noprune",))
+def test_prune_scan_cuda_edge_cases(cuda, c, kind):
+    """Non-finite lanes amid finite ones, unsorted dp, exact ties, r >= C,
+    an all-+inf row, and rows where nothing prunes (every row keeps r)."""
+    rng = np.random.default_rng(c + 7)
+    if kind == "noprune":
+        dp, dcc = prune_inputs(rng, 8, c, pad_frac=0.0)
+        dcc = dcc + np.float32(1e3)
+        a2, r = 1.44, 32
+    else:
+        dp, dcc, a2, r = prune_edge_inputs(rng, kind, 8, c)
+    dp, dcc = torch.from_numpy(dp), torch.from_numpy(dcc)
+    got = tops.prune_scan(dp.to(cuda), dcc.to(cuda), a2, r)
+    torch.cuda.synchronize()
+    want = tops.prune_scan(dp, dcc, a2, r)
+    assert torch.equal(got.cpu(), want)
+    if kind == "noprune":
+        assert (want.sum(1) == min(r, c)).all()
 
 
 @pytest.mark.parametrize("n,m,k,dtype", [(1000, 16, 256, np.uint8),
@@ -156,6 +244,9 @@ def test_cuda_wrappers_count_and_check(cuda):
     tops.l2_rerank(torch.zeros((3, 8), device=cuda),
                    torch.zeros(8, device=cuda))
     assert tops.LAUNCHES["l2_rerank"] == 1
+    gargs = gather_inputs(np.random.default_rng(0), 2, 9, 40)
+    tops.hop_fused_gather(*(torch.from_numpy(a).to(cuda) for a in gargs))
+    assert tops.LAUNCHES["hop_fused"] == 1
     with pytest.raises(ValueError, match="exceed 8"):
         tops.approx_probe(torch.zeros(5, dtype=torch.int32, device=cuda),
                           torch.zeros(5, dtype=torch.uint8, device=cuda),

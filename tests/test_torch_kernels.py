@@ -16,7 +16,9 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
-from torch_port_helpers import hop_inputs, or_inputs, prune_inputs
+from torch_port_helpers import (PRUNE_KINDS, gather_inputs, gathered_slab,
+                                hop_inputs, or_inputs, prune_edge_inputs,
+                                prune_inputs)
 
 
 # ---------------------------------------------------------------------------
@@ -59,6 +61,51 @@ def test_hop_fused_out_of_range_field_matches_repro(lo):
     np.testing.assert_array_equal(ok_t.numpy(), np.asarray(ok_i))
     np.testing.assert_array_equal(key_t.numpy().view(np.int32),
                                   np.asarray(key_i).view(np.int32))
+
+
+@pytest.mark.parametrize("b", [1, 3, 64])
+@pytest.mark.parametrize("c", [7, 512])
+@pytest.mark.parametrize("merged_mode", [0, 1, 2])
+def test_hop_fused_gather_matches_repro(b, c, merged_mode):
+    """The gathered entry on the CPU against ``repro``'s Pallas kernel
+    (interpret mode) and jnp reference, both run on the slab gathered with
+    numpy from the same stores; ids include 0, N-1 and repeats."""
+    rng = np.random.default_rng(b * 1000 + c + merged_mode)
+    n = 1000
+    args = gather_inputs(rng, b, c, n, m=16, merged_mode=merged_mode)
+    key_t, ok_t = tops.hop_fused_gather(*(torch.from_numpy(a)
+                                          for a in args))
+    jargs = [jnp.asarray(a) for a in gathered_slab(args)]
+    key_i, ok_i = jops.hop_fused_interpret(*jargs)
+    key_r, ok_r = jref.hop_fused_ref(*jargs)
+    np.testing.assert_array_equal(ok_t.numpy(), np.asarray(ok_i))
+    np.testing.assert_array_equal(ok_t.numpy(), np.asarray(ok_r))
+    np.testing.assert_array_equal(key_t.numpy().view(np.int32),
+                                  np.asarray(key_i).view(np.int32))
+    np.testing.assert_array_equal(key_t.numpy().view(np.int32),
+                                  np.asarray(key_r).view(np.int32))
+
+
+def test_hop_fused_gather_out_of_range_ids():
+    """An id outside [0, N) reads no row and gives key +inf, ok False; the
+    other candidates are those of the slab entry; a bitmap too short for
+    the stores is refused."""
+    rng = np.random.default_rng(21)
+    args = [torch.from_numpy(a) for a in gather_inputs(rng, 2, 9, 50)]
+    ids = args[4].clone()
+    ids[0, 3], ids[1, 0], ids[1, 8] = -1, 50, 2 ** 31 - 1
+    args[4] = ids
+    key, ok = tops.hop_fused_gather(*args)
+    bad = (ids < 0) | (ids >= 50)
+    assert torch.isinf(key[bad]).all() and not ok[bad].any()
+    safe = [a.numpy() for a in args]
+    safe[4] = np.where(bad.numpy(), 0, safe[4])
+    key_s, ok_s = tops.hop_fused(*(torch.from_numpy(a)
+                                   for a in gathered_slab(safe)))
+    assert torch.equal(key[~bad], key_s[~bad])
+    assert torch.equal(ok[~bad], ok_s[~bad])
+    with pytest.raises(ValueError, match="bitmap words"):
+        tops.hop_fused_gather(*args[:3], args[3][:, :1], *args[4:])
 
 
 def test_adc_slab_matches_repro():
@@ -133,6 +180,28 @@ def test_prune_scan_matches_repro(b, c, r, alpha):
     np.testing.assert_array_equal(got, want_r)
     np.testing.assert_array_equal(got, want_i)
     assert (got.sum(1) <= r).all()
+
+
+@pytest.mark.parametrize("kind", PRUNE_KINDS)
+@pytest.mark.parametrize("c", [1, 31, 32, 33, 129])
+def test_prune_scan_edge_cases_match_repro(kind, c):
+    """The cases the kernel's skip logic must get right (non-finite lanes
+    amid finite ones, unsorted dp, exact ties a2·dcc == dp, r >= C, a row
+    of +inf) against ``repro``'s kernel in interpret mode and its
+    reference."""
+    from repro.kernels.prune_scan import prune_scan
+    rng = np.random.default_rng(c * 10 + PRUNE_KINDS.index(kind))
+    dp, dcc, a2, r = prune_edge_inputs(rng, kind, 3, c)
+    got = tops.prune_scan(torch.from_numpy(dp), torch.from_numpy(dcc), a2,
+                          r).numpy()
+    want_i = np.asarray(prune_scan(jnp.asarray(dp), jnp.asarray(dcc), a2, r,
+                                   interpret=True))
+    want_r = np.asarray(jref.prune_scan_ref(jnp.asarray(dp),
+                                            jnp.asarray(dcc), a2, r))
+    np.testing.assert_array_equal(got, want_r)
+    np.testing.assert_array_equal(got, want_i)
+    if kind == "all_inf":
+        assert not got[0].any()
 
 
 def test_prune_scan_respects_cap():
@@ -323,6 +392,8 @@ def test_cpu_dispatch_counts_no_launch():
     tops.reset_launches()
     rng = np.random.default_rng(0)
     tops.hop_fused(*(torch.from_numpy(a) for a in hop_inputs(rng, 2, 9)))
+    tops.hop_fused_gather(*(torch.from_numpy(a)
+                            for a in gather_inputs(rng, 2, 9, 40)))
     tops.or_scatter(torch.zeros((1, 2), dtype=torch.int32),
                     torch.zeros((1, 3), dtype=torch.int32))
     dp, dcc = prune_inputs(rng, 2, 8)

@@ -107,3 +107,73 @@ def prune_inputs(rng, b, c, pad_frac=0.3):
     for i in range(b):
         np.fill_diagonal(dcc[i], 0.0)
     return dp, dcc
+
+
+def gather_inputs(rng, b, c, n, m=8, k=256, f=3, ql=8, nr=4,
+                  merged_mode=None):
+    """Inputs of ``hop_fused_gather``: stores of ``n`` rows, a rare-list
+    bitmap of ceil((n+1)/32) words per query, and ids (B, C) in [0, n) that
+    include 0, n-1 and repeats; the per-query parameters as
+    :func:`hop_inputs` draws them, with every query's merged_mode set to
+    ``merged_mode`` when given. Returns the ``hop_fused_gather`` argument
+    tuple as numpy."""
+    codes = rng.integers(0, k, (n, m)).astype(np.uint8)
+    blooms = rng.integers(0, 2 ** 31, n, dtype=np.int64).astype(np.int32)
+    buckets = rng.integers(0, 256, (n, f)).astype(np.int32)
+    nw = (n + 1 + 31) // 32
+    merged = rng.integers(-2 ** 31, 2 ** 31, (b, nw),
+                          dtype=np.int64).astype(np.int32)
+    ids = rng.integers(0, n, (b, c)).astype(np.int32)
+    ids[:, 0] = 0
+    ids[:, -1] = n - 1
+    if c > 2:
+        ids[:, 1] = ids[:, 2]                     # a repeated id
+    (_, _, _, _, table, scalars, or_masks, range_field, lo,
+     hi) = hop_inputs(rng, b, 1, m=m, k=k, f=f, ql=ql, nr=nr)
+    if merged_mode is not None:
+        scalars[:, 2] = merged_mode
+    return (codes, blooms, buckets, merged, ids, table, scalars, or_masks,
+            range_field, lo, hi)
+
+
+def gathered_slab(args):
+    """The (B, C) slab that ``hop_fused_gather``'s ``args`` name, gathered
+    with numpy: the argument tuple of ``hop_fused``."""
+    (codes, blooms, buckets, merged, ids, table, scalars, or_masks,
+     range_field, lo, hi) = args
+    words = np.take_along_axis(merged, ids >> 5, axis=1)
+    in_merged = ((words >> (ids & 31)) & 1).astype(bool)
+    return (codes[ids], blooms[ids], buckets[ids], in_merged, table, scalars,
+            or_masks, range_field, lo, hi)
+
+
+PRUNE_KINDS = ("nonfinite_middle", "unsorted", "ties", "r_ge_c", "all_inf")
+
+
+def prune_edge_inputs(rng, kind, b, c):
+    """A ``prune_scan`` case that the kernel's skip logic must get right:
+    non-finite lanes (+inf, nan) amid finite ones; unsorted dp; exact ties
+    a2·dcc == dp (a2 = 4, so the product is exact); r >= C; a row that is
+    all +inf. Returns ``(dp, dcc, a2, r)`` as numpy and Python numbers."""
+    dp, dcc = prune_inputs(rng, b, c, pad_frac=0.0)
+    a2, r = 1.44, max(1, c // 3)
+    if kind == "nonfinite_middle":
+        for i in range(b):
+            pos = rng.choice(c, size=max(1, c // 4), replace=False)
+            dp[i, pos] = np.inf
+            dp[i, pos[::3]] = np.nan
+    elif kind == "unsorted":
+        dp = rng.permuted(dp, axis=1)
+    elif kind == "ties":
+        a2 = 4.0
+        tie = rng.random((b, c, c)) < 0.3
+        dcc = np.where(tie, (dp[:, None, :] / np.float32(4.0)),
+                       dcc).astype(np.float32)
+    elif kind == "r_ge_c":
+        r = c + 3
+        dcc = dcc + np.float32(3.0)               # little pruning
+    elif kind == "all_inf":
+        dp[0] = np.inf
+    else:
+        raise ValueError(kind)
+    return dp.astype(np.float32), dcc.astype(np.float32), a2, r
