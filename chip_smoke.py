@@ -17,8 +17,16 @@ Phases, each printing one JSON line:
    function (``embedding_bag``), timed as a yardstick and used nowhere else.
    hop_fused is held in both entries: the slab and the gathered one (ids
    over stores of 1M rows, which the hop step launches); prune_scan also on
-   rows where nothing prunes (every row keeps r = 32); ``launch_floor`` is
-   the device time of one minimal launch through a wrapper.
+   rows where nothing prunes (every row keeps r = 32). pq_scan is timed on
+   the gated scan's 1M rows (``pq_scan/scan``, and ``pq_scan/scan_cold``
+   with the L2 evicted before each call), on 50,000 pre-route rows through
+   the slab entry (``pq_scan/pre``) and on 50,000 ids over the 1M-row store
+   through the gathered entry the pre route launches
+   (``pq_scan/pre_gather``); approx_probe at 100,000 and 1M rows, and at
+   1M with the L2 evicted (``approx_probe/1M_cold``). ``launch_floor`` is
+   the device time of one launch that reads nothing and writes 4 bytes
+   (PyTorch's fill of one int32), with a one-row ``approx_probe`` beside
+   it (``launch_floor/approx_probe``, the floor of earlier runs).
 3. card vs CPU — builds an index on the card over the test corpus, copies
    it to the CPU with ``FilteredANNEngine.from_arrays`` and runs the same
    label / range / hybrid queries on both: routes, ids and integer counters
@@ -28,20 +36,22 @@ Phases, each printing one JSON line:
 4. full size — the main path at a deployment's data size: the index build
    (PQ, Vamana passes, 2-hop lists, record store) and filtered search under
    the speculative and post policies, with recall against brute force on
-   the card and every returned id checked by exact membership. Kernel
-   launch counts are zeroed just before the build and read just after the
-   last ``engine.search`` run; the diagnostics between them (graph stats,
-   greedy recall, the hop-loop profile) and each run's result checks are
-   left out of the counts.
+   the card and every returned id checked by exact membership; each pre
+   query calls ``ops.pq_scan_gather`` once and nothing calls the slab
+   ``ops.pq_scan``. Kernel launch counts are zeroed just before the build
+   and read just after the last ``engine.search`` run; the diagnostics
+   between them (graph stats, greedy recall, the hop-loop profile) and
+   each run's result checks are left out of the counts.
 5. serving — the phase-4 engine behind ``Index`` and ``SearchServer``:
    warmup over every degrade rung (the gated scan included), the affine
    service model's calibration, a burst of DSL requests that walks the
    queue up the ladder (every handle resolves or fails with ``Overloaded``
    / ``DeadlineExceeded``, every returned id passes exact membership), then
    ``approx_scan_batch`` alone on the 64 queries (QPS, pages, recall@10
-   against brute force on the card) and 8 of them against a CPU copy of the
-   engine. Launch counts are zeroed just before the warmup and read just
-   after the scan batch.
+   against brute force on the card; one slab ``ops.pq_scan`` call and
+   launch per query) and 8 of them against a CPU copy of the engine.
+   Launch counts are zeroed just before the warmup and read just after the
+   scan batch.
 6. ops — ``kernels.ops.approx_probe`` and ``ops.l2_rerank`` (the
    counterparts of ``repro.kernels.ops``) over the whole corpus for each of
    the 64 phase-4 queries: the probe, with a param block built from the
@@ -66,11 +76,12 @@ fault plan on both and saves on the card to load on the CPU.
 Then a ``kernels`` line (launches of hop_fused, or_scatter and prune_scan
 from phase 4, of pq_scan from phase 5, of approx_probe and l2_rerank from
 phase 6; times from phase 2: hop_fused's of the gathered entry with the slab
-entry's beside it, prune_scan's with the no-prune row beside it, and the
-launch floor), the card's name and power limit as
-``nvidia-smi`` prints them, and last the result line. It exits non-zero,
-printing no result, when there is no CUDA device or the port's sources are
-missing; any failed check raises.
+entry's beside it, prune_scan's with the no-prune row beside it, pq_scan's
+with its cold, pre and pre_gather rows beside it, approx_probe's with its
+cold and 100,000-row rows beside it, and both launch floors), the card's
+name and power limit as ``nvidia-smi`` prints them, and last the result
+line. It exits non-zero, printing no result, when there is no CUDA device
+or the port's sources are missing; any failed check raises.
 """
 from __future__ import annotations
 
@@ -156,6 +167,29 @@ def timed(kernel, plain, **row) -> dict:
     row["ms"], row["call_ms"] = time_ms(kernel)
     row["plain_ms"], row["plain_call_ms"] = time_ms(plain)
     return row
+
+
+def time_cold_ms(fn, scratch, reps: int = 21) -> float:
+    """Device ms of one call of ``fn`` that finds the L2 cache cold, median
+    over ``reps``: before each call a write of ``scratch`` (more bytes than
+    the 50 MB L2 holds) evicts what the call reads, and one call runs
+    between a pair of CUDA events. The stream is held busy first, so the
+    host's enqueue leaves no gap between the write and the call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for i in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(50_000_000)
+        scratch.fill_(float(i))
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b))
+    return float(sorted(ts)[reps // 2])
 
 
 # ---------------------------------------------------------------------------
@@ -304,18 +338,29 @@ def kernel_phase(dev) -> dict:
         kept=kept, max_abs_err=float((got.int() - want.int()).abs().max()),
         bound_ms=bms, bound_by=by)
 
-    # what the card charges for any launch through a wrapper: one kernel
-    # with one thread of work and one round trip to memory (approx_probe
-    # on one row launches one kernel and nothing else)
+    # what the card charges for one kernel launch: PyTorch's fill of one
+    # element (one launch and one 4-byte store, nothing read, code no
+    # redesign touches), and beside it approx_probe on one row (the floor
+    # of earlier runs)
+    cell = torch.zeros(1, dtype=torch.int32, device=dev)
+    floor_ms, floor_call_ms = time_ms(cell.zero_)
+    out["launch_floor"] = {"via": "torch.Tensor.zero_ on one int32",
+                           "ms": floor_ms, "call_ms": floor_call_ms}
     one = [torch.zeros(n, dtype=dt, device=dev)
            for n, dt in ((1, torch.int32), (1, torch.uint8), (8, torch.int32),
                          (8, torch.int32))]
     floor_ms, floor_call_ms = time_ms(lambda: ops.approx_probe(*one))
-    out["launch_floor"] = {"via": "ops.approx_probe on one row",
-                           "ms": floor_ms, "call_ms": floor_call_ms}
+    out["launch_floor/approx_probe"] = {
+        "via": "ops.approx_probe on one row", "ms": floor_ms,
+        "call_ms": floor_call_ms}
 
-    # pq_scan: the gated full-corpus scan (N = 1M rows) and a pre-route
-    # candidate set (50,000 rows), M=16 uint8 codes, K=256
+    # writing it evicts the L2 before each cold-cache timing
+    scratch = torch.empty(32 * 2 ** 20, dtype=torch.float32, device=dev)
+
+    # pq_scan: the gated full-corpus scan (N = 1M rows, also with the L2
+    # cold) and a pre-route candidate set (50,000 rows) through the slab
+    # entry, and 50,000 ids over the 1M-row store through the gathered entry
+    # the pre route launches; M=16 uint8 codes, K=256
     m, k = 16, 256
     for tag, n in (("scan", 1_000_000), ("pre", 50_000)):
         codes = torch.from_numpy(
@@ -345,6 +390,41 @@ def kernel_phase(dev) -> dict:
         row["library_ms"], row["library_call_ms"] = time_ms(library)
         row["library_max_abs_err"] = float((lib - want).abs().max())
         out[f"pq_scan/{tag}"] = row
+        if tag == "scan":
+            out["pq_scan/scan_cold"] = {
+                "shape": [n, m, k], "bound_ms": bms, "bound_by": by,
+                "ms": time_cold_ms(lambda: ops.pq_scan(codes, table),
+                                   scratch)}
+            store, store_table = codes, table
+
+    c = 50_000
+    ids = torch.from_numpy(
+        rng.integers(0, store.shape[0], c).astype(np.int32)).to(dev)
+    got = ops.pq_scan_gather(store, ids, store_table)
+    want = ref.pq_scan_gather_ref(store, ids, store_table)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
+        "pq_scan/pre_gather: not bit-identical"
+    # the yardstick on the rows gathered outside the timed region
+    flat_idx = store[ids.long()].long() + torch.arange(m, device=dev) * k
+    flat_table = store_table.reshape(-1, 1)
+
+    def library():
+        return torch.nn.functional.embedding_bag(flat_idx, flat_table,
+                                                 mode="sum")
+
+    lib = library()[:, 0]
+    # per id: the id, its code row, the distance out
+    bms, by = bound(c * (4 + m + 4) + m * k * 4, c * m)
+    row = timed(lambda: ops.pq_scan_gather(store, ids, store_table),
+                lambda: ref.pq_scan_gather_ref(store, ids, store_table),
+                shape=[c, m, k, store.shape[0]],
+                max_abs_err=float((got - want).abs().max()), bound_ms=bms,
+                bound_by=by)
+    row["library_ms"], row["library_call_ms"] = time_ms(library)
+    row["library_max_abs_err"] = float((lib - want).abs().max())
+    out["pq_scan/pre_gather"] = row
+    del store, flat_idx
 
     # approx_probe: kernels_bench's shape (100,000 candidates) and the whole
     # full-size corpus (1M), uint8 buckets, QL=8; bytes: 4 (word) + 1
@@ -371,6 +451,12 @@ def kernel_phase(dev) -> dict:
             admitted=float(got.float().mean()),
             max_abs_err=float((got.int() - want.int()).abs().max()),
             bound_ms=bms, bound_by=by, library_ms=None)
+        if tag == "1M":
+            out["approx_probe/1M_cold"] = {
+                "shape": [n, 8], "bound_ms": bms, "bound_by": by,
+                "ms": time_cold_ms(lambda: ops.approx_probe(*pargs),
+                                   scratch)}
+    del scratch
 
     # l2_rerank: kernels_bench's shape (4,096, 128) and one query against
     # the whole full-size corpus (1M, 192); 4·D flops per row
@@ -584,26 +670,55 @@ def uncounted():
         ops.restore(saved)
 
 
+@contextlib.contextmanager
+def pq_entry_calls():
+    """Count calls of ``ops.pq_scan`` (the slab entry) and
+    ``ops.pq_scan_gather`` while open: both count their launches under
+    ``pq_scan``, and this tells them apart. The port calls both through the
+    ``ops`` module, so wrapping the module's names sees every call."""
+    from repro_torch.kernels import ops
+    calls = {"pq_scan": 0, "pq_scan_gather": 0}
+    saved = {name: getattr(ops, name) for name in calls}
+
+    def counting(name):
+        def call(*args, **kwargs):
+            calls[name] += 1
+            return saved[name](*args, **kwargs)
+        return call
+
+    for name in calls:
+        setattr(ops, name, counting(name))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+
+
 def _search_run(e, ds, sels, scfg, label, reachable, repeats: int = 5):
     """One workload through ``engine.search``: a warm-up batch, then
-    ``repeats`` timed batches whose kernel launches it reports per batch."""
+    ``repeats`` timed batches whose kernel launches (and calls of the two
+    ``pq_scan`` entries) it reports per batch."""
     import torch
     from repro_torch.kernels import ops
 
     e.search(ds.queries, sels, scfg)                  # warm-up
     before = ops.snapshot()
     lat = []
-    for _ in range(repeats):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ids, dists, stats = e.search(ds.queries, sels, scfg)
-        lat.append(time.perf_counter() - t0)
+    with pq_entry_calls() as calls:
+        for _ in range(repeats):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ids, dists, stats = e.search(ds.queries, sels, scfg)
+            lat.append(time.perf_counter() - t0)
     after = ops.snapshot()
     per_batch = {k: (after[k] - before[k]) / repeats for k in before}
     with uncounted():
         row = _check_run(e, ds, sels, scfg, label, ids, stats, lat)
     return {**row, "reachable_from_medoid": reachable,
-            "launches_per_batch": per_batch}
+            "launches_per_batch": per_batch,
+            "pq_entry_calls_per_batch": {k: v / repeats
+                                         for k, v in calls.items()}}
 
 
 def _check_run(e, ds, sels, scfg, label, ids, stats, lat) -> dict:
@@ -745,6 +860,14 @@ def full_phase(dev, n: int):
         per_batch = run["launches_per_batch"]
         assert per_batch["or_scatter"] > 0, \
             f"{run['run']}: no or_scatter launch"
+        # the pre route's candidate scans go through the gathered entry,
+        # one call per pre query, and nothing else launches pq_scan here
+        entries = run["pq_entry_calls_per_batch"]
+        assert entries["pq_scan"] == 0, \
+            f"{run['run']}: the slab pq_scan entry was called"
+        assert entries["pq_scan_gather"] == run["mechanisms"].get("pre", 0), \
+            f"{run['run']}: not one pq_scan_gather call per pre query"
+        assert per_batch["pq_scan"] <= entries["pq_scan_gather"]
         if policy == "speculative":
             assert per_batch["hop_fused"] > 0, \
                 f"{run['run']}: no hop_fused launch"
@@ -853,13 +976,18 @@ def serve_phase(e, ds, dev):
     torch.cuda.synchronize(dev)
     scan_reqs = reqs[:nq]
     before = ops.snapshot()
-    t0 = time.perf_counter()
-    scan_res, scan_st = index.approx_scan_batch(scan_reqs, with_stats=True,
-                                                with_metadata=False)
-    scan_s = time.perf_counter() - t0
+    with pq_entry_calls() as calls:
+        t0 = time.perf_counter()
+        scan_res, scan_st = index.approx_scan_batch(
+            scan_reqs, with_stats=True, with_metadata=False)
+        scan_s = time.perf_counter() - t0
     out["launches"] = ops.snapshot()
     out["launches_scan_batch"] = {k: out["launches"][k] - before[k]
                                   for k in before}
+    out["pq_entry_calls_scan_batch"] = dict(calls)
+    # the scan rung runs the slab entry once per query
+    assert calls == {"pq_scan": nq, "pq_scan_gather": 0}, calls
+    assert out["launches_scan_batch"]["pq_scan"] == nq
 
     with uncounted():
         out["burst"] = {
@@ -1187,9 +1315,15 @@ KERNELS = {
                   "src/repro/kernels/l2_rerank.py:35"),
 }
 # phase-2 rows reported beside a kernel's own: the slab entry of hop_fused
-# (the main path launches the gathered one), the no-prune row of prune_scan
+# (the main path launches the gathered one), the no-prune row of
+# prune_scan, pq_scan's cold-L2 scan and pre-route rows (the slab entry and
+# the gathered one the pre route launches), approx_probe's cold-L2 and
+# 100,000-row rows
 BESIDE = {"hop_fused": ("hop_fused",),
-          "prune_scan": ("prune_scan/C96/noprune",)}
+          "prune_scan": ("prune_scan/C96/noprune",),
+          "pq_scan": ("pq_scan/scan_cold", "pq_scan/pre",
+                      "pq_scan/pre_gather"),
+          "approx_probe": ("approx_probe/1M_cold", "approx_probe/100k")}
 # the phase whose run counts each kernel's launches
 LAUNCH_PHASE = {"hop_fused": "full", "or_scatter": "full",
                 "prune_scan": "full", "pq_scan": "serve",
@@ -1277,6 +1411,8 @@ def main(argv=None) -> int:
             for b in BESIDE.get(name, ())}
     emit({"kernels": rows, "n_full": full["n"], "n_cuts": cuts,
           "launch_floor_ms": kern["results"]["launch_floor"]["ms"],
+          "launch_floor_approx_probe_ms":
+              kern["results"]["launch_floor/approx_probe"]["ms"],
           "full_phase_s": full["seconds"], "serve_phase_s": serve["seconds"],
           "ops_phase_s": opsr["seconds"], "lifecycle_phase_s": life["seconds"],
           "seconds": time.perf_counter() - t_start})

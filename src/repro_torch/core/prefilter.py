@@ -8,7 +8,9 @@ it in fixed-size chunks carrying a running top-(L+δ) with ``lax.top_k``;
 that running merge keeps, among equal distances, the earlier candidate, so
 it equals one stable sort of all candidate distances — which is what the
 port computes, on the device, in one pass. Both scans compute their ADC
-distances with the ``pq_scan`` kernel (``kernels.ops.pq_scan``).
+distances with the ``pq_scan`` kernel: the pre route through its gathered
+entry (``kernels.ops.pq_scan_gather``, which reads the candidates' code
+rows itself), the gated scan through its slab entry (``ops.pq_scan``).
 """
 from __future__ import annotations
 
@@ -48,7 +50,7 @@ def _pq_topl(codes, codebook, query, cand_ids: torch.Tensor, l_rerank: int):
     earlier candidate; (-1, BIG) pads when there are fewer. Returns
     (top_ids (l,), top_dists (l,))."""
     table = pq_mod.distance_table(codebook, query)
-    d = ops.pq_scan(codes[cand_ids.long()], table)
+    d = ops.pq_scan_gather(codes, cand_ids, table)
     return _stable_topl(cand_ids, d, l_rerank)
 
 

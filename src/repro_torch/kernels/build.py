@@ -37,6 +37,10 @@ SIGNATURES = {
     "prune_scan_launch": [_P] * 3 + [_I, _I, ctypes.c_float, _I, _P],
     "pq_scan_u8_launch": [_P] * 3 + [ctypes.c_longlong, _I, _I, _P],
     "pq_scan_i32_launch": [_P] * 3 + [ctypes.c_longlong, _I, _I, _P],
+    "pq_scan_gather_u8_launch": [_P] * 4 + [ctypes.c_longlong] * 2
+    + [_I, _I, _P],
+    "pq_scan_gather_i32_launch": [_P] * 4 + [ctypes.c_longlong] * 2
+    + [_I, _I, _P],
     "approx_probe_u8_launch": [_P] * 5 + [ctypes.c_longlong, _I, _P],
     "approx_probe_i32_launch": [_P] * 5 + [ctypes.c_longlong, _I, _P],
     "l2_rerank_launch": [_P] * 3 + [ctypes.c_longlong, _I, _P],

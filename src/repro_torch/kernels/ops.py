@@ -209,13 +209,9 @@ def prune_scan(dp_s, dcc_s, a2: float, r: int):
     return keep
 
 
-def pq_scan(codes, table):
-    """ADC distances of N code rows against one table: codes (N, M) uint8 or
-    int32, table (M, K) float32 -> (N,) float32; see ``ref.pq_scan_ref``.
-    N = 0 launches nothing."""
-    if not codes.is_cuda:
-        return ref.pq_scan_ref(codes, table)
-    dev = codes.device
+def _check_pq(codes, table, dev) -> str:
+    """The inputs of both ``pq_scan`` entries; returns the code type's
+    suffix of the launch function."""
     n, m = codes.shape
     k = table.shape[-1]
     if codes.dtype not in (torch.uint8, torch.int32):
@@ -226,13 +222,46 @@ def pq_scan(codes, table):
     if m * k * 4 > 48 * 1024:
         raise ValueError(f"pq_scan: table of {m}x{k} exceeds 48 KB of "
                          "shared memory")
+    return "u8" if codes.dtype == torch.uint8 else "i32"
+
+
+def pq_scan(codes, table):
+    """ADC distances of N code rows against one table: codes (N, M) uint8 or
+    int32, table (M, K) float32 -> (N,) float32; see ``ref.pq_scan_ref``.
+    N = 0 launches nothing."""
+    if not codes.is_cuda:
+        return ref.pq_scan_ref(codes, table)
+    dev = codes.device
+    kind = _check_pq(codes, table, dev)
+    n, m = codes.shape
     out = torch.empty((n,), dtype=torch.float32, device=dev)
     if n == 0:
         return out
-    fn = "pq_scan_u8_launch" if codes.dtype == torch.uint8 \
-        else "pq_scan_i32_launch"
-    _launch(fn, codes.data_ptr(), table.data_ptr(), out.data_ptr(), n, m, k,
-            _stream(dev))
+    _launch(f"pq_scan_{kind}_launch", codes.data_ptr(), table.data_ptr(),
+            out.data_ptr(), n, m, table.shape[-1], _stream(dev))
+    _count("pq_scan")
+    return out
+
+
+def pq_scan_gather(codes, ids, table):
+    """``pq_scan`` of the rows ``ids`` (C,) int32 names in the store codes
+    (N, M), gathered by the kernel itself: -> (C,) float32, equal to
+    ``pq_scan(codes[ids], table)``; an id outside [0, N) gives +inf. See
+    ``ref.pq_scan_gather_ref``. C = 0 launches nothing; launches count
+    under ``pq_scan``."""
+    if not codes.is_cuda:
+        return ref.pq_scan_gather_ref(codes, ids, table)
+    dev = codes.device
+    kind = _check_pq(codes, table, dev)
+    n, m = codes.shape
+    c = ids.shape[0]
+    _check("ids", ids, torch.int32, (c,), dev)
+    out = torch.empty((c,), dtype=torch.float32, device=dev)
+    if c == 0:
+        return out
+    _launch(f"pq_scan_gather_{kind}_launch", codes.data_ptr(),
+            ids.data_ptr(), table.data_ptr(), out.data_ptr(), c, n, m,
+            table.shape[-1], _stream(dev))
     _count("pq_scan")
     return out
 

@@ -91,6 +91,20 @@ def pq_scan_ref(codes: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return adc_slab_ref(c, table)
 
 
+def pq_scan_gather_ref(codes: torch.Tensor, ids: torch.Tensor,
+                       table: torch.Tensor) -> torch.Tensor:
+    """:func:`pq_scan_ref` of the rows ``ids`` (C,) int32 names in codes
+    (N, M): (C,) float32. An id outside [0, N) gives +inf (its row is not
+    read), as in :func:`hop_fused_gather_ref`."""
+    n = codes.shape[0]
+    bad = (ids < 0) | (ids >= n)
+    if n == 0:
+        return torch.full(ids.shape, float("inf"), dtype=torch.float32,
+                          device=ids.device)
+    d = pq_scan_ref(codes[torch.where(bad, 0, ids).long()], table)
+    return torch.where(bad, float("inf"), d)
+
+
 def hop_fused_ref(codes_slab, blooms, buckets, in_merged, table, scalars,
                   or_masks, range_field, bucket_lo, bucket_hi):
     """Fused per-hop candidate pass over a pre-gathered (B, C) slab.

@@ -156,39 +156,110 @@ def test_prune_scan_cuda_edge_cases(cuda, c, kind):
         assert (want.sum(1) == min(r, c)).all()
 
 
-@pytest.mark.parametrize("n,m,k,dtype", [(1000, 16, 256, np.uint8),
-                                         (700, 32, 16, np.int32),
-                                         (1000, 16, 256, np.int32),
-                                         (33, 5, 256, np.uint8)])
-def test_pq_scan_cuda_matches_plain(cuda, n, m, k, dtype):
-    """Bit-identical to the plain version, on the 16-byte load path
-    (M=16 uint8, M=32 int32 and M=16 int32 rows) and the byte path
-    (M=5), and on codes out of range."""
-    rng = np.random.default_rng(n + m)
-    codes = torch.from_numpy(rng.integers(0, k, (n, m)).astype(dtype))
-    table = torch.from_numpy(rng.normal(0, 1, (m, k)).astype(np.float32))
-    got = tops.pq_scan(codes.to(cuda), table.to(cuda))
+def _rows(n, cuda):
+    """A row count of the pq_scan grid: an int, or one row either side of
+    one full wave of the kernel's grid (SMs x 8 blocks x 256 threads), past
+    which a thread takes a second row."""
+    if isinstance(n, int):
+        return n
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    wave = sms * 8 * 256
+    return wave - 1 if n == "wave-1" else wave + 1
+
+
+def _pq_codes(rng, n, m, k, dtype):
+    """Codes of the grid: uint8 over all 256 values (past K when K = 16, so
+    the clamp is read), int32 in [0, K)."""
+    hi = 256 if dtype == np.uint8 else k
+    return torch.from_numpy(rng.integers(0, hi, (n, m)).astype(dtype))
+
+
+def _misaligned(t, cuda):
+    """A copy of ``t`` on the card whose storage starts one element past a
+    16-byte boundary."""
+    flat = torch.zeros(t.numel() + 1, dtype=t.dtype, device=cuda)
+    flat[1:] = t.reshape(-1).to(cuda)
+    view = flat[1:].view(t.shape)
+    assert view.data_ptr() % 16
+    return view
+
+
+def _bits_equal(got, want):
     torch.cuda.synchronize()
-    want = tops.pq_scan(codes, table)
     assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, "wave-1", "wave+1", 1_000_000])
+@pytest.mark.parametrize("m", [4, 8, 16, 32, 5])
+@pytest.mark.parametrize("k", [16, 256])
+@pytest.mark.parametrize("dtype", [np.uint8, np.int32])
+def test_pq_scan_cuda_matches_plain(cuda, n, m, k, dtype):
+    """Bit-identical to the plain version at M = 4, 8, 16, 32 and 5, on
+    aligned rows (16-byte loads where a row is a whole number of them) and
+    on a view one element off 16 bytes (a code at a time), below and past
+    one wave of the grid, and on codes out of range."""
+    n = _rows(n, cuda)
+    rng = np.random.default_rng(n + m + k)
+    codes = _pq_codes(rng, n, m, k, dtype)
+    table = torch.from_numpy(rng.normal(0, 1, (m, k)).astype(np.float32))
+    want = tops.pq_scan(codes, table)
+    _bits_equal(tops.pq_scan(codes.to(cuda), table.to(cuda)), want)
+    _bits_equal(tops.pq_scan(_misaligned(codes, cuda), table.to(cuda)), want)
     if dtype == np.int32:
         bad = torch.from_numpy(rng.integers(-2 * k, 2 * k, (n, m))
                                .astype(np.int32))
-        got = tops.pq_scan(bad.to(cuda), table.to(cuda))
-        torch.cuda.synchronize()
-        assert torch.equal(got.cpu().view(torch.int32),
-                           tops.pq_scan(bad, table).view(torch.int32))
+        _bits_equal(tops.pq_scan(bad.to(cuda), table.to(cuda)),
+                    tops.pq_scan(bad, table))
 
 
-@pytest.mark.parametrize("n", [1, 999, 100_000])
+@pytest.mark.parametrize("c", [1, 33, 50_000, "wave+1", 1_000_000])
+@pytest.mark.parametrize("m", [16, 8, 32, 5])
+@pytest.mark.parametrize("dtype", [np.uint8, np.int32])
+def test_pq_scan_gather_cuda_matches_plain(cuda, c, m, dtype):
+    """The gathered entry against its plain version and against the slab
+    entry on the rows it gathers, with ids out of range (-1, N, +-2**31)
+    among them, which give +inf; below and past one wave of the grid."""
+    c = _rows(c, cuda)
+    rng = np.random.default_rng(c + m)
+    n, k = 100_000, 256
+    store = _pq_codes(rng, n, m, k, dtype)
+    table = torch.from_numpy(rng.normal(0, 1, (m, k)).astype(np.float32))
+    ids = torch.from_numpy(rng.integers(0, n, c).astype(np.int32))
+    ids[::7] = torch.tensor([-1, n, -2 ** 31, 2 ** 31 - 1],
+                            dtype=torch.int32).repeat(c)[:ids[::7].numel()]
+    want = tops.pq_scan_gather(store, ids, table)
+    got = tops.pq_scan_gather(store.to(cuda), ids.to(cuda), table.to(cuda))
+    _bits_equal(got, want)
+    _bits_equal(tops.pq_scan_gather(_misaligned(store, cuda), ids.to(cuda),
+                                    table.to(cuda)), want)
+    bad = (ids < 0) | (ids >= n)
+    assert torch.isinf(want[bad]).all()
+    _bits_equal(got[~bad.to(cuda)],
+                tops.pq_scan(store[ids[~bad].long()], table))
+
+
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 999, 100_000, 1_000_000,
+                               2_000_003])
 @pytest.mark.parametrize("bucket_dtype", [np.uint8, np.int32])
-def test_approx_probe_cuda_matches_plain(cuda, n, bucket_dtype):
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_approx_probe_cuda_matches_plain(cuda, n, bucket_dtype, misaligned):
     """Equal to the plain version on every mode combination, with uint32
-    blooms >= 2**31 and both bucket types."""
+    blooms >= 2**31 and both bucket types, at 4 and 8 rows a thread
+    (N = 100,000; 1M and 2M), the ragged tail, and views one element off
+    16 bytes (``blooms[1:]``)."""
     rng = np.random.default_rng(n)
-    blooms = torch.from_numpy(rng.integers(0, 2 ** 32, n, dtype=np.int64)
+    blooms = torch.from_numpy(rng.integers(0, 2 ** 32, n + 1, dtype=np.int64)
                               .astype(np.uint32))
-    buckets = torch.from_numpy(rng.integers(0, 256, n).astype(bucket_dtype))
+    buckets = torch.from_numpy(rng.integers(0, 256, n + 1)
+                               .astype(bucket_dtype))
+    if misaligned:
+        blooms, buckets = blooms[1:], buckets[1:]
+        gb, gk = blooms.to(cuda), buckets.to(cuda)
+        gb, gk = _misaligned(gb.view(torch.int32), cuda), \
+            _misaligned(gk, cuda)
+    else:
+        blooms, buckets = blooms[:n], buckets[:n]
+        gb, gk = blooms.to(cuda), buckets.to(cuda)
     or_masks = torch.from_numpy(np.array(
         [0, 5, 1 << 31, 0x30, 0, 7, 0x100, 3], np.uint32))
     for label_mode in (0, 1, 2):
@@ -198,8 +269,8 @@ def test_approx_probe_cuda_matches_plain(cuda, n, bucket_dtype):
                                        range_on, combine, 0],
                                       dtype=torch.int32)
                 want = tops.approx_probe(blooms, buckets, or_masks, params)
-                got = tops.approx_probe(blooms.to(cuda), buckets.to(cuda),
-                                        or_masks.to(cuda), params.to(cuda))
+                got = tops.approx_probe(gb, gk, or_masks.to(cuda),
+                                        params.to(cuda))
                 torch.cuda.synchronize()
                 assert torch.equal(got.cpu(), want), (label_mode, range_on,
                                                       combine)
@@ -229,6 +300,12 @@ def test_cuda_wrappers_count_and_check(cuda):
     tops.pq_scan(torch.zeros((3, 16), dtype=torch.uint8, device=cuda),
                  torch.zeros((16, 256), dtype=torch.float32, device=cuda))
     assert tops.LAUNCHES["pq_scan"] == 1
+    tops.pq_scan_gather(torch.zeros((3, 16), dtype=torch.uint8,
+                                    device=cuda),
+                        torch.zeros(5, dtype=torch.int32, device=cuda),
+                        torch.zeros((16, 256), dtype=torch.float32,
+                                    device=cuda))
+    assert tops.LAUNCHES["pq_scan"] == 2
     with pytest.raises(ValueError, match="48 KB"):
         tops.pq_scan(torch.zeros((3, 64), dtype=torch.uint8, device=cuda),
                      torch.zeros((64, 256), dtype=torch.float32,

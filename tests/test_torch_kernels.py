@@ -220,24 +220,57 @@ def test_prune_scan_respects_cap():
 @pytest.mark.parametrize("n", [1, 5, 128, 700, 1024])
 @pytest.mark.parametrize("m,k", [(8, 256), (16, 256), (32, 16)])
 @pytest.mark.parametrize("codes_dtype", [np.uint8, np.int32])
-def test_pq_scan_matches_repro(n, m, k, codes_dtype):
+@pytest.mark.parametrize("entry", ["slab", "gather"])
+def test_pq_scan_matches_repro(n, m, k, codes_dtype, entry):
     """tests/test_kernels.py's grid: the plain version equals ``repro``'s
     jnp reference and its Pallas kernel in interpret mode bit for bit (all
     three add m left to right; no case of this grid needed that file's
-    rtol=1e-6, atol=1e-5)."""
+    rtol=1e-6, atol=1e-5). The gathered entry takes n ids (0, the last row
+    and repeats among them) into a store of 2n + 3 rows and is held
+    against ``repro`` on the rows numpy gathers."""
     from repro.kernels.pq_scan import pq_scan
     rng = np.random.default_rng(n * m + k)
-    codes = rng.integers(0, k, (n, m)).astype(codes_dtype)
     table = rng.normal(0, 1, (m, k)).astype(np.float32)
-    got = tops.pq_scan(torch.from_numpy(codes), torch.from_numpy(table))
+    if entry == "slab":
+        codes = rng.integers(0, k, (n, m)).astype(codes_dtype)
+        got = tops.pq_scan(torch.from_numpy(codes), torch.from_numpy(table))
+        rows = codes
+    else:
+        store = rng.integers(0, k, (2 * n + 3, m)).astype(codes_dtype)
+        ids = rng.integers(0, store.shape[0], n).astype(np.int32)
+        ids[0] = store.shape[0] - 1
+        ids[-1] = 0
+        got = tops.pq_scan_gather(torch.from_numpy(store),
+                                  torch.from_numpy(ids),
+                                  torch.from_numpy(table))
+        rows = store[ids]
     assert got.dtype == torch.float32 and got.shape == (n,)
     got = got.numpy()
-    want_r = np.asarray(jref.pq_scan_ref(jnp.asarray(codes),
+    want_r = np.asarray(jref.pq_scan_ref(jnp.asarray(rows),
                                          jnp.asarray(table)))
-    want_i = np.asarray(pq_scan(jnp.asarray(codes), jnp.asarray(table),
+    want_i = np.asarray(pq_scan(jnp.asarray(rows), jnp.asarray(table),
                                 interpret=True, tile_n=256))
     np.testing.assert_array_equal(got.view(np.int32), want_r.view(np.int32))
     np.testing.assert_array_equal(got.view(np.int32), want_i.view(np.int32))
+
+
+def test_pq_scan_gather_out_of_range_ids():
+    """An id outside [0, N) gives +inf and reads nothing; every other entry
+    equals the slab entry on its row."""
+    rng = np.random.default_rng(12)
+    n, m, k = 50, 16, 256
+    store = torch.from_numpy(rng.integers(0, k, (n, m)).astype(np.uint8))
+    table = torch.from_numpy(rng.normal(0, 1, (m, k)).astype(np.float32))
+    ids = torch.tensor([-1, n, 0, n - 1, -2 ** 31, 2 ** 31 - 1, 7, n + 1],
+                       dtype=torch.int32)
+    got = tops.pq_scan_gather(store, ids, table)
+    bad = (ids < 0) | (ids >= n)
+    assert torch.isinf(got[bad]).all() and (got[bad] > 0).all()
+    want = tops.pq_scan(store[ids[~bad].long()], table)
+    assert torch.equal(got[~bad].view(torch.int32), want.view(torch.int32))
+    empty = tops.pq_scan_gather(store[:0], ids[:3], table)
+    assert torch.isinf(empty).all()
+    assert tops.pq_scan_gather(store, ids[:0], table).shape == (0,)
 
 
 def test_pq_scan_out_of_range_codes_match_repro():
@@ -400,6 +433,9 @@ def test_cpu_dispatch_counts_no_launch():
     tops.prune_scan(torch.from_numpy(dp), torch.from_numpy(dcc), 1.0, 4)
     tops.pq_scan(torch.zeros((5, 4), dtype=torch.uint8),
                  torch.zeros((4, 16), dtype=torch.float32))
+    tops.pq_scan_gather(torch.zeros((5, 4), dtype=torch.uint8),
+                        torch.zeros(3, dtype=torch.int32),
+                        torch.zeros((4, 16), dtype=torch.float32))
     tops.approx_probe(torch.zeros(5, dtype=torch.int32),
                       torch.zeros(5, dtype=torch.uint8),
                       torch.zeros(8, dtype=torch.int32),

@@ -19,7 +19,10 @@ Every JSON line a process prints is echoed with the checkout and the run's
 position; at the end come the card's name and power limit as
 ``nvidia-smi`` prints them and one ``ab_summary`` line, per run: for the
 full phase build seconds and stages, ms per hop and each search run's QPS
-and batch p50; for the kernel phase every row's device ms.
+and batch p50; for the kernel phase every row's device ms, the cold-L2 rows
+(``pq_scan/scan_cold``, ``approx_probe/1M_cold``) and both launch floors
+included. A checkout whose kernel phase lacks a row (an older one) shows
+only the rows it has.
 """
 from __future__ import annotations
 
