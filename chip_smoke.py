@@ -16,10 +16,16 @@ Phases, each printing one JSON line:
    CUDA events; for pq_scan also one PyTorch call that computes the same
    function (``embedding_bag``), timed as a yardstick and used nowhere else.
    hop_fused is held in both entries: the slab and the gathered one (ids
-   over stores of 1M rows, which the hop step launches); prune_scan also on
-   rows where nothing prunes (every row keeps r = 32). pq_scan is timed on
-   the gated scan's 1M rows (``pq_scan/scan``, and ``pq_scan/scan_cold``
-   with the L2 evicted before each call), on 50,000 pre-route rows through
+   over stores of 1M rows, which the hop step launches); or_scatter in all
+   three: the out-of-place slab entry (``or_scatter/visited``,
+   ``or_scatter/rare_list``), the in-place entry the hop launches
+   (``or_scatter/visited_inplace``) and the fresh-table entry of the
+   seeding (``or_scatter/visited_new``, ``or_scatter/rare_list_new``:
+   ``torch.zeros`` and the in-place kernel);
+   prune_scan also on rows where nothing prunes (every row keeps
+   r = 32). pq_scan is timed on the gated scan's 1M rows
+   (``pq_scan/scan``, and ``pq_scan/scan_cold`` with the L2 evicted
+   before each call), on 50,000 pre-route rows through
    the slab entry (``pq_scan/pre``) and on 50,000 ids over the 1M-row store
    through the gathered entry the pre route launches
    (``pq_scan/pre_gather``); approx_probe at 100,000 and 1M rows, and at
@@ -38,10 +44,13 @@ Phases, each printing one JSON line:
    the speculative and post policies, with recall against brute force on
    the card and every returned id checked by exact membership; each pre
    query calls ``ops.pq_scan_gather`` once and nothing calls the slab
-   ``ops.pq_scan``. Kernel launch counts are zeroed just before the build
-   and read just after the last ``engine.search`` run; the diagnostics
-   between them (graph stats, greedy recall, the hop-loop profile) and
-   each run's result checks are left out of the counts.
+   ``ops.pq_scan``; every ``or_scatter`` launch goes through the in-place
+   ``ops.or_scatter_``, from the hop or from the seeding's
+   ``ops.or_scatter_new``, and nothing calls the slab ``ops.or_scatter``. Kernel launch counts
+   are zeroed just before the build and read just after the last
+   ``engine.search`` run; the diagnostics between them (graph stats,
+   greedy recall, the hop-loop profile) and each run's result checks are
+   left out of the counts.
 5. serving — the phase-4 engine behind ``Index`` and ``SearchServer``:
    warmup over every degrade rung (the gated scan included), the affine
    service model's calibration, a burst of DSL requests that walks the
@@ -76,9 +85,11 @@ fault plan on both and saves on the card to load on the CPU.
 Then a ``kernels`` line (launches of hop_fused, or_scatter and prune_scan
 from phase 4, of pq_scan from phase 5, of approx_probe and l2_rerank from
 phase 6; times from phase 2: hop_fused's of the gathered entry with the slab
-entry's beside it, prune_scan's with the no-prune row beside it, pq_scan's
-with its cold, pre and pre_gather rows beside it, approx_probe's with its
-cold and 100,000-row rows beside it, and both launch floors), the card's
+entry's beside it, or_scatter's of the in-place entry with the fresh-table
+and slab rows beside it, prune_scan's with the no-prune row beside it,
+pq_scan's with its cold, pre and pre_gather rows beside it,
+approx_probe's with its cold and 100,000-row rows beside it, and both
+launch floors), the card's
 name and power limit as ``nvidia-smi`` prints them, and last the result
 line. It exits non-zero, printing no result, when there is no CUDA device
 or the port's sources are missing; any failed check raises.
@@ -293,6 +304,49 @@ def kernel_phase(dev) -> dict:
             lambda: ref.or_scatter_ref(words, slots), shape=[b, nw, c],
             max_abs_err=float((got.long() - want.long()).abs().max()),
             bound_ms=bms, bound_by=by)
+
+    # or_scatter, the two entries the search path launches (inputs from
+    # their own generator, so the other rows keep theirs): the hop's
+    # in-place visited update, (64, 32768 words) with one hop's W·R = 32 ids
+    # over N = 1M (identity slots), timed on one table over and over (an OR
+    # into a set bit moves the same bytes), and the plain version on a
+    # clone; the visited set seeded with E = 1 entry a query; the rare-list
+    # bitmap at N = 1M, (64, 31251 words) from CAP = 2048 ids
+    orng = np.random.default_rng(16)
+    n_ids = 1_000_000
+    b, nw, c = 64, 32768, 32
+    words = torch.from_numpy(orng.integers(
+        -2 ** 31, 2 ** 31, (b, nw), dtype=np.int64).astype(np.int32)).to(dev)
+    ids = torch.from_numpy(orng.integers(-1, n_ids, (b, c)).astype(
+        np.int32)).to(dev)
+    got = ops.or_scatter_(words.clone(), ids, n_ids)
+    want = ref.or_scatter_ref_(words.clone(), ids, n_ids)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), "or_scatter/visited_inplace differs"
+    # per id: the id, and one 32-byte sector read and written back in L2
+    bms, by = bound(b * c * (4 + 32), b * c)
+    out["or_scatter/visited_inplace"] = timed(
+        lambda: ops.or_scatter_(words, ids, n_ids),
+        lambda: ref.or_scatter_ref_(words.clone(), ids, n_ids),
+        shape=[b, nw, c], max_abs_err=float((got.long()
+                                             - want.long()).abs().max()),
+        bound_ms=bms, bound_by=by)
+    for tag, (b, nw, c), nid in (("visited_new", (64, 32768, 1), n_ids),
+                                 ("rare_list_new", (64, 31251, 2048), None)):
+        ids = torch.from_numpy(orng.integers(
+            -1, min(nw * 32 + 8, n_ids + 1), (b, c)).astype(np.int32)).to(dev)
+        got = ops.or_scatter_new(ids, nw, nid)
+        want = ref.or_scatter_new_ref(ids, nw, nid)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"or_scatter/{tag} differs"
+        # the ids read once and the table written once
+        bms, by = bound(b * nw * 4 + b * c * 4, b * c)
+        out[f"or_scatter/{tag}"] = timed(
+            lambda: ops.or_scatter_new(ids, nw, nid),
+            lambda: ref.or_scatter_new_ref(ids, nw, nid), shape=[b, nw, c],
+            max_abs_err=float((got.long() - want.long()).abs().max()),
+            bound_ms=bms, bound_by=by)
+    del words, ids
 
     # prune_scan: B=1024 rows, C = R+8 (overflow), ell+R pass 1 and pass 2
     for c in (40, 74, 96):
@@ -671,13 +725,15 @@ def uncounted():
 
 
 @contextlib.contextmanager
-def pq_entry_calls():
-    """Count calls of ``ops.pq_scan`` (the slab entry) and
-    ``ops.pq_scan_gather`` while open: both count their launches under
-    ``pq_scan``, and this tells them apart. The port calls both through the
-    ``ops`` module, so wrapping the module's names sees every call."""
+def entry_calls(*names):
+    """Count calls of the ``ops`` entries ``names`` while open. Entries of
+    one kernel count their launches under one name (``pq_scan`` and
+    ``pq_scan_gather`` under ``pq_scan``; ``or_scatter``, ``or_scatter_``
+    and ``or_scatter_new`` under ``or_scatter``), and this tells them apart.
+    The port calls them through the ``ops`` module, so wrapping the
+    module's names sees every call."""
     from repro_torch.kernels import ops
-    calls = {"pq_scan": 0, "pq_scan_gather": 0}
+    calls = dict.fromkeys(names, 0)
     saved = {name: getattr(ops, name) for name in calls}
 
     def counting(name):
@@ -695,17 +751,22 @@ def pq_entry_calls():
             setattr(ops, name, fn)
 
 
+# the entries phase 4 tells apart
+SEARCH_ENTRIES = ("pq_scan", "pq_scan_gather", "or_scatter", "or_scatter_",
+                  "or_scatter_new")
+
+
 def _search_run(e, ds, sels, scfg, label, reachable, repeats: int = 5):
     """One workload through ``engine.search``: a warm-up batch, then
-    ``repeats`` timed batches whose kernel launches (and calls of the two
-    ``pq_scan`` entries) it reports per batch."""
+    ``repeats`` timed batches whose kernel launches (and calls of the
+    ``pq_scan`` and ``or_scatter`` entries) it reports per batch."""
     import torch
     from repro_torch.kernels import ops
 
     e.search(ds.queries, sels, scfg)                  # warm-up
     before = ops.snapshot()
     lat = []
-    with pq_entry_calls() as calls:
+    with entry_calls(*SEARCH_ENTRIES) as calls:
         for _ in range(repeats):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -717,8 +778,8 @@ def _search_run(e, ds, sels, scfg, label, reachable, repeats: int = 5):
         row = _check_run(e, ds, sels, scfg, label, ids, stats, lat)
     return {**row, "reachable_from_medoid": reachable,
             "launches_per_batch": per_batch,
-            "pq_entry_calls_per_batch": {k: v / repeats
-                                         for k, v in calls.items()}}
+            "entry_calls_per_batch": {k: v / repeats
+                                      for k, v in calls.items()}}
 
 
 def _check_run(e, ds, sels, scfg, label, ids, stats, lat) -> dict:
@@ -792,8 +853,11 @@ def hop_profile(e, ds, cfg, hops: int = 32) -> dict:
                                  ds.queries, e.medoid, sp)
     mc = search._mc(e.mem, ctx, sp)
     rec = search._issue(e.store, st)
+    # a hop consumes its state (the visited words change in place): the
+    # counted hop runs on a copy, the timed chunk on the seeded state
+    once = search.HopState(*(t.clone() for t in st))
     n_ops = torch_ops(lambda: search._issue(e.store, search._hop_step(
-        e.store, e.codes, e.mem, sp, ctx, mc, st, rec)))
+        e.store, e.codes, e.mem, sp, ctx, mc, once, rec)))
     torch.cuda.synchronize(e.device)
     t0 = time.perf_counter()
     search.run_hops(e.store, e.codes, e.mem, ctx, st, hops, sp)
@@ -858,11 +922,21 @@ def full_phase(dev, n: int):
                           reachable)
         emit({"phase": "full_search", **run})
         per_batch = run["launches_per_batch"]
-        assert per_batch["or_scatter"] > 0, \
-            f"{run['run']}: no or_scatter launch"
+        entries = run["entry_calls_per_batch"]
+        # the seeding builds the visited set (and the rare-list bitmap)
+        # through the fresh entry, which zeroes a table and calls the
+        # in-place one; the hop loop calls the in-place entry; each of its
+        # calls is one launch, and nothing calls the slab entry
+        assert entries["or_scatter_new"] > 0, \
+            f"{run['run']}: no fresh-table or_scatter call"
+        assert entries["or_scatter_"] > entries["or_scatter_new"], \
+            f"{run['run']}: no in-place or_scatter call from the hop loop"
+        assert entries["or_scatter"] == 0, \
+            f"{run['run']}: the slab or_scatter entry was called"
+        assert per_batch["or_scatter"] == entries["or_scatter_"], \
+            f"{run['run']}: or_scatter launches outside the in-place entry"
         # the pre route's candidate scans go through the gathered entry,
         # one call per pre query, and nothing else launches pq_scan here
-        entries = run["pq_entry_calls_per_batch"]
         assert entries["pq_scan"] == 0, \
             f"{run['run']}: the slab pq_scan entry was called"
         assert entries["pq_scan_gather"] == run["mechanisms"].get("pre", 0), \
@@ -976,7 +1050,7 @@ def serve_phase(e, ds, dev):
     torch.cuda.synchronize(dev)
     scan_reqs = reqs[:nq]
     before = ops.snapshot()
-    with pq_entry_calls() as calls:
+    with entry_calls("pq_scan", "pq_scan_gather") as calls:
         t0 = time.perf_counter()
         scan_res, scan_st = index.approx_scan_batch(
             scan_reqs, with_stats=True, with_metadata=False)
@@ -1299,7 +1373,7 @@ KERNELS = {
     "hop_fused": ("hop_fused/gather",
                   "src/repro_torch/kernels/csrc/hop_fused.cu",
                   "src/repro/kernels/hop_fused.py:142"),
-    "or_scatter": ("or_scatter/visited",
+    "or_scatter": ("or_scatter/visited_inplace",
                    "src/repro_torch/kernels/csrc/or_scatter.cu",
                    "src/repro/kernels/or_scatter.py:61"),
     "prune_scan": ("prune_scan/C96/a2=1.44",
@@ -1315,11 +1389,14 @@ KERNELS = {
                   "src/repro/kernels/l2_rerank.py:35"),
 }
 # phase-2 rows reported beside a kernel's own: the slab entry of hop_fused
-# (the main path launches the gathered one), the no-prune row of
-# prune_scan, pq_scan's cold-L2 scan and pre-route rows (the slab entry and
-# the gathered one the pre route launches), approx_probe's cold-L2 and
-# 100,000-row rows
+# (the main path launches the gathered one), or_scatter's fresh-table rows
+# (the seeding's) and its out-of-place slab entry's two rows, the no-prune
+# row of prune_scan, pq_scan's cold-L2 scan and pre-route rows (the slab
+# entry and the gathered one the pre route launches), approx_probe's
+# cold-L2 and 100,000-row rows
 BESIDE = {"hop_fused": ("hop_fused",),
+          "or_scatter": ("or_scatter/visited_new", "or_scatter/rare_list_new",
+                         "or_scatter/visited", "or_scatter/rare_list"),
           "prune_scan": ("prune_scan/C96/noprune",),
           "pq_scan": ("pq_scan/scan_cold", "pq_scan/pre",
                       "pq_scan/pre_gather"),

@@ -144,6 +144,7 @@ class Index:
     def build(cls, vectors: np.ndarray, metadata: Sequence[dict],
               config: IndexConfig = IndexConfig(),
               schema: Optional[Schema] = None,
+              numeric_field: Optional[str] = None,
               defaults: SearchConfig = SearchConfig(),
               store: str = "device",
               shards: int = 0,
@@ -153,7 +154,9 @@ class Index:
 
         ``schema`` declares the attribute fields explicitly; when omitted
         it is inferred from the metadata (float values ⇒ numeric fields,
-        everything else ⇒ tag fields).
+        everything else ⇒ tag fields). ``numeric_field`` is the deprecated
+        single-field spelling kept from ``repro``: it pins ``Schema.nums``
+        to that one field with no inference; pass a Schema instead.
 
         ``store="disk"`` and ``shards > 1`` are later slices of the port and raise
         ``NotImplementedError``.
@@ -173,7 +176,18 @@ class Index:
             raise ValueError(f"{vectors.shape[0]} vectors but "
                              f"{len(metadata)} metadata dicts")
         if schema is None:
-            schema = Schema.infer(metadata)
+            if numeric_field is not None:
+                # legacy spelling: the named field is the one numeric
+                # column, every other key is a tag field
+                fields = {k for d in metadata for k in d}
+                schema = Schema(tags=tuple(sorted(fields
+                                                  - {numeric_field})),
+                                nums=(numeric_field,))
+            else:
+                schema = Schema.infer(metadata)
+        elif numeric_field is not None:
+            raise ValueError("pass either schema= or the deprecated "
+                             "numeric_field=, not both")
         vocab, offsets, label_flat, values = _ingest_metadata(metadata,
                                                               schema)
         engine = FilteredANNEngine.build(
@@ -403,6 +417,12 @@ class Index:
     @property
     def qr(self) -> int:
         return self.engine.config.qr
+
+    @property
+    def numeric_field(self) -> Optional[str]:
+        """Deprecated single-field accessor: the first schema numeric
+        field (None when the index has none). Use ``index.schema.nums``."""
+        return self.schema.nums[0] if self.schema.nums else None
 
     def label_id(self, field: str, value) -> Optional[int]:
         try:

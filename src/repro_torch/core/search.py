@@ -25,13 +25,14 @@ retry → hedge → degrade ladder (``core/faults.py``): a row whose every
 attempt failed is answered from the in-memory tier (ADC distance and
 approximate membership) and its neighbours are not expanded.
 
-Hop pipeline: a per-query word-packed visited bitmap (set by
-``kernels.ops.or_scatter``), a key-sorted pool merged by one stable sort, an
-incremental early-termination bound, and the cross-hop prefetch (the next
-frontier is selected at the end of a hop and its records are gathered before
-the next hop runs). Every tie is broken by lower index through stable sorts,
-as ``jax.lax.top_k`` and ``jnp.argsort`` break them, so the port follows the
-JAX package's trajectory query for query.
+Hop pipeline: a per-query word-packed visited bitmap (built by
+``kernels.ops.or_scatter_new`` at seeding and updated in place by
+``kernels.ops.or_scatter_`` every hop), a key-sorted pool merged by one
+stable sort, an incremental early-termination bound, and the cross-hop
+prefetch (the next frontier is selected at the end of a hop and its records
+are gathered before the next hop runs). Every tie is broken by lower index
+through stable sorts, as ``jax.lax.top_k`` and ``jnp.argsort`` break them,
+so the port follows the JAX package's trajectory query for query.
 
 Execution: :func:`run_hops` advances a batch ``n_hops`` hops with no host
 synchronisation inside (rows that settled are exact fixed points of the hop
@@ -61,9 +62,7 @@ from repro_torch.core.selectors import (InMemory, QueryFilter,
                                         take_filter_rows)
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import BIG, INVALID_PENALTY, adc_slab_ref, \
-    sq_dist
-
-VISITED_SLOTS_MAX = 1 << 20   # beyond this the visited set hashes (approx.)
+    sq_dist, visited_slot, visited_spec
 
 DEFAULT_HOP_CHUNK = 32    # hops between the driver's compaction checks
 MIN_COMPACT_BUCKET = 8    # narrowest bucket the driver compacts into
@@ -128,24 +127,6 @@ def local_fetch(store: RecordStore, ids: torch.Tensor) -> dict:
 # Hop-pipeline primitives
 # ---------------------------------------------------------------------------
 
-def _visited_spec(n_ids: int) -> tuple[int, int]:
-    """(n_slots, shift) of the visited slot table over ``n_ids`` ids: exact
-    (identity) while the ids fit in VISITED_SLOTS_MAX slots, multiply-shift
-    hashed beyond (a collision only skips re-exploring a node)."""
-    bits = max(8, int(max(n_ids - 1, 1)).bit_length())
-    bits = min(bits, VISITED_SLOTS_MAX.bit_length() - 1)
-    return 1 << bits, 32 - bits
-
-
-def _visited_slot(ids: torch.Tensor, n_ids: int) -> torch.Tensor:
-    n_slots, shift = _visited_spec(n_ids)
-    if n_slots >= n_ids:
-        return ids
-    # uint32 multiply-shift in int64 arithmetic
-    h = (ids.long() * 0x9E3779B1) & 0xFFFFFFFF
-    return (h >> shift).int()
-
-
 def _bit_test(words: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
     """Bit ``slots[b, j]`` of row b of a word-packed bitmap (signed words:
     the arithmetic shift then ``& 1`` reads bit 31 correctly)."""
@@ -199,7 +180,14 @@ class QueryCtx(NamedTuple):
 class HopState(NamedTuple):
     """Per-query mutable search state carried across hops (leading dim B).
     No hop operation mixes query rows, so taking or putting rows of this
-    tuple (straggler compaction) leaves each query's trajectory unchanged."""
+    tuple (straggler compaction) leaves each query's trajectory unchanged.
+
+    A hop consumes the state it is given: :func:`_hop_step` updates
+    ``visited`` in place (``kernels.ops.or_scatter_``) and returns it in the
+    new state, so after a hop the old state's ``visited`` is the new one's.
+    A caller that needs the state from before a hop clones it first
+    (``HopState(*(t.clone() for t in st))``); ``take_rows``/``put_rows``
+    copy rows, so a compacted state shares no tensor with the full one."""
     pool_ids: torch.Tensor    # (B, P) int32
     pool_key: torch.Tensor    # (B, P) float32, key-ascending
     pool_exp: torch.Tensor    # (B, P) bool
@@ -256,7 +244,7 @@ def _init(store, codes, codebook, mem, qf, queries, entry, params, entries):
     B = queries.shape[0]
     dev = queries.device
     n_ids = codes.shape[0]
-    n_slots, _ = _visited_spec(n_ids)
+    n_slots, _ = visited_spec(n_ids)
     if entries is None:
         entries = torch.full((B, 1), int(entry), dtype=torch.int32,
                              device=dev)
@@ -286,11 +274,8 @@ def _init(store, codes, codebook, mem, qf, queries, entry, params, entries):
     pool_exp[:, :E] = torch.gather(~ent_valid, 1, order0)
 
     # n_slots is 2^bits with bits >= 8, so the word table divides evenly;
-    # the n_slots sentinel is out of range and drops in the OR-scatter
-    visited = kops.or_scatter(
-        torch.zeros((B, n_slots // 32), dtype=torch.int32, device=dev),
-        torch.where(ent_valid, _visited_slot(safe_ent, n_ids),
-                    n_slots).int().contiguous())
+    # the fresh-table entry drops the invalid (< 0) entries
+    visited = kops.or_scatter_new(entries.contiguous(), n_slots // 32, n_ids)
 
     res_ids = torch.full((B, res_cap), -1, dtype=torch.int32, device=dev)
     res_d = torch.full((B, res_cap), BIG, dtype=torch.float32, device=dev)
@@ -309,7 +294,9 @@ def _init(store, codes, codebook, mem, qf, queries, entry, params, entries):
 
 def _hop_step(store, codes, mem, params, ctx, mc, st, rec) -> HopState:
     """Consume the in-flight record slab for one hop, merge, and select the
-    next frontier (the step numbering follows ``repro``'s ``_hop_step``)."""
+    next frontier (the step numbering follows ``repro``'s ``_hop_step``).
+    ``st`` is consumed: its ``visited`` words are updated in place and
+    returned in the new state (see :class:`HopState`)."""
     p = params
     l_valid = p.l_valid or p.l_search
     P, W = p.l_search, p.beam_width
@@ -318,7 +305,6 @@ def _hop_step(store, codes, mem, params, ctx, mc, st, rec) -> HopState:
     C = R + Rd
     rec_pages = store.pages_dense if p.mode == "spec_in" else store.pages_std
     n_ids = codes.shape[0]
-    n_slots, _ = _visited_spec(n_ids)
     (pool_ids, pool_key, pool_exp, visited, res_ids, res_d, res_valid,
      vtop, n_okc, counters, active, cur_ids, cur_live) = st
     queries, tables, qf, merged_tbl = ctx
@@ -395,7 +381,7 @@ def _hop_step(store, codes, mem, params, ctx, mc, st, rec) -> HopState:
     cand = torch.where(expand_live[:, :, None], cand, -1).reshape(B, W * C)
     live = cand >= 0
     safe_cand = torch.where(live, cand, 0)
-    seen = _bit_test(visited, _visited_slot(safe_cand, n_ids))
+    seen = _bit_test(visited, visited_slot(safe_cand, n_ids))
     if W == 1 and "cand_first" in rec:
         # W=1: the slab is one record's candidate list — read its
         # precomputed first-occurrence mask (records.candidate_first_mask)
@@ -454,12 +440,10 @@ def _hop_step(store, codes, mem, params, ctx, mc, st, rec) -> HopState:
         new_key = torch.where(ok, key_slab, BIG)
     dist_c = counters[:, 1] + sel_live.sum(1, dtype=torch.int32)
     # mark *admitted* candidates visited (a fresh candidate that loses slot
-    # selection stays unmarked and may be re-proposed by another parent)
-    visited = kops.or_scatter(
-        visited,
-        torch.where(sel_live,
-                    _visited_slot(torch.where(sel_live, new_ids, 0), n_ids),
-                    n_slots).int().contiguous())
+    # selection stays unmarked and may be re-proposed by another parent):
+    # new_ids is -1 wherever sel_live is False, and the in-place entry drops
+    # those; the state's visited words are updated where they lie
+    visited = kops.or_scatter_(visited, new_ids, n_ids)
 
     # ---- 7. sorted-pool merge: concatenate + one stable sort ----
     all_key = torch.cat([pool_key, new_key], 1)
@@ -505,7 +489,9 @@ def run_hops(store: RecordStore, codes, mem: InMemory, ctx: QueryCtx,
     """Advance every query ``n_hops`` hops with no host synchronisation:
     settled rows are exact fixed points of the hop step, so hopping them
     changes nothing. Each hop consumes the slab fetched at the end of the
-    previous one (the cross-hop prefetch)."""
+    previous one (the cross-hop prefetch). ``st`` is consumed as by
+    :func:`_hop_step`: the returned state holds its ``visited`` tensor,
+    updated in place."""
     mc = _mc(mem, ctx, params)
     rec = _issue(store, st)
     for _ in range(n_hops):

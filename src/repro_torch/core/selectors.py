@@ -189,14 +189,11 @@ def merged_table_words(qf: QueryFilter, n_ids: int) -> torch.Tensor:
     word: ``(B, ceil((n_ids+1)/32))``, bit i of row b set iff id i is in
     query b's merged list. Pad ids (INT_PAD) clip into the sentinel bit
     ``n_ids``, which the hop loop never reads (candidate ids are < n_ids).
-    Built with the OR-scatter kernel."""
+    Built by the OR-scatter kernel's fresh-table entry."""
     from repro_torch.kernels import ops
-    b = qf.merged_ids.shape[0]
     n_words = (n_ids + 1 + 31) // 32
-    return ops.or_scatter(
-        torch.zeros((b, n_words), dtype=torch.int32,
-                    device=qf.merged_ids.device),
-        qf.merged_ids.clamp(max=n_ids).contiguous())
+    return ops.or_scatter_new(qf.merged_ids.clamp(max=n_ids).contiguous(),
+                              n_words)
 
 
 def kernel_view(mem: InMemory) -> tuple[torch.Tensor, torch.Tensor]:

@@ -34,6 +34,7 @@ SIGNATURES = {
     "hop_fused_gather_launch": [_P] * 13 + [ctypes.c_longlong] + [_I] * 8
     + [_P],
     "or_scatter_launch": [_P] * 3 + [_I] * 3 + [_P],
+    "or_scatter_inplace_launch": [_P] * 2 + [_I] * 4 + [_P],
     "prune_scan_launch": [_P] * 3 + [_I, _I, ctypes.c_float, _I, _P],
     "pq_scan_u8_launch": [_P] * 3 + [ctypes.c_longlong, _I, _I, _P],
     "pq_scan_i32_launch": [_P] * 3 + [ctypes.c_longlong, _I, _I, _P],

@@ -176,7 +176,9 @@ def hop_fused_gather(codes, blooms, buckets, merged_words, ids, table,
 
 def or_scatter(words, slots):
     """Word-packed bitmap OR-scatter (B, NW) x (B, C) -> (B, NW), out of
-    place. Slots < 0 or >= NW*32 are dropped."""
+    place (``repro.kernels.ops.or_scatter``'s contract). Slots < 0 or
+    >= NW*32 are dropped. The search path calls :func:`or_scatter_` and
+    :func:`or_scatter_new` instead."""
     if not words.is_cuda:
         return ref.or_scatter_ref(words, slots)
     dev = words.device
@@ -189,6 +191,48 @@ def or_scatter(words, slots):
             out.data_ptr(), b, nw, c, _stream(dev))
     _count("or_scatter")
     return out
+
+
+def _slot_shift(n_ids) -> int:
+    """The kernels' slot rule: 0 when the slots are the ids themselves
+    (``n_ids`` None, or a visited table that holds every id), else the
+    shift of the visited table's multiply-shift hash (always >= 12)."""
+    if n_ids is None:
+        return 0
+    n_slots, shift = ref.visited_spec(n_ids)
+    return 0 if n_slots >= n_ids else shift
+
+
+def or_scatter_(words, ids, n_ids=None):
+    """In place: for every ``ids[b, j] >= 0`` set the bit of its slot in
+    row b of ``words`` (B, NW) int32, and return ``words``. The slot is the
+    id itself, or with ``n_ids`` its visited-table slot
+    (``ref.visited_slot``); slots >= NW*32 are dropped. ids (B, C) int32.
+    C = 0 launches nothing; launches count under ``or_scatter``."""
+    if not words.is_cuda:
+        return ref.or_scatter_ref_(words, ids, n_ids)
+    dev = words.device
+    b, nw = words.shape
+    c = ids.shape[-1]
+    _check("words", words, torch.int32, (b, nw), dev)
+    _check("ids", ids, torch.int32, (b, c), dev)
+    if b * c:
+        _launch("or_scatter_inplace_launch", words.data_ptr(),
+                ids.data_ptr(), b, nw, c, _slot_shift(n_ids), _stream(dev))
+        _count("or_scatter")
+    return words
+
+
+def or_scatter_new(ids, nw: int, n_ids=None):
+    """A fresh (B, nw) int32 table, zero but for the bits of the slots of
+    ``ids`` (B, C) int32 (as in :func:`or_scatter_`): ``torch.zeros`` and
+    the in-place kernel, one launch counted under ``or_scatter`` when C >
+    0 (csrc/or_scatter.cu says why it has no kernel of its own)."""
+    if not ids.is_cuda:
+        return ref.or_scatter_new_ref(ids, nw, n_ids)
+    words = torch.zeros((ids.shape[0], nw), dtype=torch.int32,
+                        device=ids.device)
+    return or_scatter_(words, ids, n_ids)
 
 
 def prune_scan(dp_s, dcc_s, a2: float, r: int):

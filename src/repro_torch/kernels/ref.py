@@ -31,6 +31,7 @@ import torch
 # "empty" key, as the float32 values they take in every comparison.
 INVALID_PENALTY = float(np.float32(1e12))
 BIG = float(np.float32(1e30))
+VISITED_SLOTS_MAX = 1 << 20   # beyond this the visited set hashes (approx.)
 
 
 def sq_dist_fma(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -200,6 +201,50 @@ def or_scatter_ref(words: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
     out = (words.long() & 0xFFFFFFFF).scatter_add(1, w, bit & ~cur)
     out = out - ((out >> 31) & 1) * (1 << 32)      # back to signed int32
     return out.to(torch.int32)
+
+
+def visited_spec(n_ids: int) -> tuple[int, int]:
+    """(n_slots, shift) of the visited slot table over ``n_ids`` ids: exact
+    (identity) while the ids fit in VISITED_SLOTS_MAX slots, multiply-shift
+    hashed beyond (a collision only skips re-exploring a node)."""
+    bits = max(8, int(max(n_ids - 1, 1)).bit_length())
+    bits = min(bits, VISITED_SLOTS_MAX.bit_length() - 1)
+    return 1 << bits, 32 - bits
+
+
+def visited_slot(ids: torch.Tensor, n_ids: int) -> torch.Tensor:
+    """Visited-table slots of ids >= 0."""
+    n_slots, shift = visited_spec(n_ids)
+    if n_slots >= n_ids:
+        return ids
+    # uint32 multiply-shift in int64 arithmetic
+    h = (ids.long() * 0x9E3779B1) & 0xFFFFFFFF
+    return (h >> shift).int()
+
+
+def _slots(ids: torch.Tensor, n_ids: int | None) -> torch.Tensor:
+    """The slots the in-place and fresh entries set for ``ids``: the ids
+    themselves (``n_ids`` None) or their visited slots, with every negative
+    id dropped."""
+    if n_ids is None:
+        return ids
+    return torch.where(ids >= 0, visited_slot(ids.clamp(min=0), n_ids), -1)
+
+
+def or_scatter_ref_(words: torch.Tensor, ids: torch.Tensor,
+                    n_ids: int | None = None) -> torch.Tensor:
+    """:func:`or_scatter_ref` in place on ``words`` (B, NW) int32, of the
+    slots of ``ids`` (B, C) (:func:`_slots`); returns ``words``."""
+    return words.copy_(or_scatter_ref(words, _slots(ids, n_ids)))
+
+
+def or_scatter_new_ref(ids: torch.Tensor, nw: int,
+                       n_ids: int | None = None) -> torch.Tensor:
+    """A fresh (B, nw) int32 table with the in-range slots of ``ids`` (B, C)
+    set (:func:`_slots`)."""
+    words = torch.zeros((ids.shape[0], nw), dtype=torch.int32,
+                        device=ids.device)
+    return or_scatter_ref_(words, ids, n_ids)
 
 
 def prune_scan_ref(dp_s: torch.Tensor, dcc_s: torch.Tensor, a2: float,

@@ -246,6 +246,81 @@ def test_index_build_from_metadata_on_cpu(corpus):
         assert 20 <= metadata[rec_id]["value"] < 80
 
 
+def test_build_numeric_field_matches_repro(corpus, tmp_path):
+    """The deprecated single-field spelling ``Index.build(vectors, metadata,
+    config, None, "v")``: both packages pin the schema to ``nums=("v",)``
+    with every other key a tag field, answer ``numeric_field`` with "v",
+    compile the same plans and ground truth, and refuse it beside
+    ``schema=``; the port's search over ``repro``'s graph answers as
+    ``repro``; a port index saved to disk loads in ``repro`` with its
+    ``numeric_field``."""
+    vectors, metadata, _ = corpus
+    n = 300
+    meta = [{"cat": m["cat"], "lang": m["lang"], "v": m["value"]}
+            for m in metadata[:n]]
+    vecs = vectors[:n]
+    cfg = dict(r=8, r_dense=32, l_build=16, pq_m=4)
+    ji = japi.Index.build(vecs, meta, japi.IndexConfig(**cfg), None, "v")
+    ti = tapi.Index.build(vecs, meta, tapi.IndexConfig(**cfg), None, "v",
+                          device="cpu")
+    assert ti.schema.tags == ji.schema.tags == ("cat", "lang")
+    assert ti.schema.nums == ji.schema.nums == ("v",)
+    assert ti.numeric_field == ji.numeric_field == "v"
+    assert ti.vocab == ji.vocab
+    # an inferred schema names "v" too, but the legacy branch infers nothing
+    # (an int-valued "v" stays numeric)
+    ints = [dict(m, v=int(m["v"])) for m in meta[:20]]
+    assert tapi.Index.build(vecs[:20], ints, tapi.IndexConfig(**cfg), None,
+                            "v", device="cpu").schema.nums == ("v",)
+    with pytest.raises(ValueError, match="not both"):
+        tapi.Index.build(vecs, meta, tapi.IndexConfig(**cfg),
+                         tapi.Schema(tags=("cat", "lang"), nums=("v",)),
+                         "v", device="cpu")
+    with pytest.raises(ValueError, match="not both"):
+        japi.Index.build(vecs, meta, japi.IndexConfig(**cfg),
+                         japi.Schema(tags=("cat", "lang"), nums=("v",)), "v")
+
+    exprs_v = {
+        "label": lambda api: api.Tag("cat") == 3,
+        "range": lambda api: api.Num("v").between(10, 50),
+        "hybrid": lambda api: ((api.Tag("lang") == "en")
+                               & (api.Num("v") >= 20)),
+    }
+    c = ji.config
+    rng = np.random.default_rng(9)
+    qs = rng.normal(0, 1, (4, D)).astype(np.float32)
+    for name, ex in exprs_v.items():
+        _assert_plans_equal(
+            japi.compile_expr(ex(japi), ji).plan(c.ql, c.cap, c.qr),
+            tapi.compile_expr(ex(tapi), ti).plan(c.ql, c.cap, c.qr), name)
+        for q in qs:
+            np.testing.assert_array_equal(
+                ti.ground_truth(tapi.SearchRequest(query=q, filter=ex(tapi))),
+                ji.ground_truth(japi.SearchRequest(query=q, filter=ex(japi))),
+                err_msg=name)
+    # per query ids: the port over repro's graph, as repro
+    tp = port_index(ji)
+    assert tp.numeric_field == "v"
+    names = list(exprs_v) * 2
+    rj, sj = ji.search_batch([japi.SearchRequest(query=q, filter=exprs_v[m](
+        japi)) for q, m in zip(np.repeat(qs, 2, 0)[:6], names)],
+        with_stats=True)
+    rt, st = tp.search_batch([tapi.SearchRequest(query=q, filter=exprs_v[m](
+        tapi)) for q, m in zip(np.repeat(qs, 2, 0)[:6], names)],
+        with_stats=True)
+    _assert_results_equal(rj, rt, sj, st, names)
+    # the port's own graph answers only valid records
+    for r in ti.search_batch([tapi.SearchRequest(
+            query=q, filter=exprs_v["hybrid"](tapi)) for q in qs]):
+        for i in r.ids[r.ids >= 0]:
+            assert meta[i]["lang"] == "en" and meta[i]["v"] >= 20
+
+    ti.save(str(tmp_path / "idx"))
+    loaded = japi.Index.load(str(tmp_path / "idx"))
+    assert loaded.numeric_field == "v"
+    assert loaded.schema.nums == ("v",) and len(loaded) == n
+
+
 def test_build_rejects_bad_metadata():
     vecs = np.zeros((3, 8), np.float32)
     with pytest.raises(ValueError, match="missing the numeric field"):

@@ -119,6 +119,72 @@ def test_or_scatter_cuda_matches_plain(cuda, b, nw, c):
     assert torch.equal(got.cpu(), tops.or_scatter(w, s))
 
 
+# the main shapes (visited set at N = 1M, rare list at N = 1M), odd
+# widths, and a row of the rare list at N = 10M
+OR_SHAPES = [(64, 32768, 32), (64, 31251, 2048), (3, 8191, 33),
+             (3, 8193, 33), (2, 312501, 2048)]
+
+
+def _or_edge_slots(b, nw, c, seed):
+    """or_inputs' slots with the table's first and last bits forced in."""
+    _, slots = or_inputs(b, nw, c, seed)
+    edges = [nw * 32 - 1, 0]
+    k = min(c, len(edges))
+    slots[:, :k] = np.array(edges[:k], np.int32)
+    return torch.from_numpy(slots)
+
+
+@pytest.mark.parametrize("n_ids", [None, 2 ** 20 + 1])
+@pytest.mark.parametrize("b,nw,c", OR_SHAPES)
+def test_or_scatter_inplace_cuda_matches_plain(cuda, b, nw, c, n_ids):
+    """The in-place entry updates the card tensor it was given, as its plain
+    version does on a CPU copy (slots as ids, or hashed visited slots)."""
+    words, _ = or_inputs(b, nw, c, 1)
+    w = torch.from_numpy(words)
+    s = _or_edge_slots(b, nw, c, 1)
+    dw = w.to(cuda)
+    ptr = dw.data_ptr()
+    got = tops.or_scatter_(dw, s.to(cuda), n_ids)
+    torch.cuda.synchronize()
+    assert got is dw and dw.data_ptr() == ptr
+    assert torch.equal(dw.cpu(), tops.or_scatter_(w.clone(), s, n_ids))
+
+
+@pytest.mark.parametrize("n_ids", [None, 2 ** 20 + 1])
+@pytest.mark.parametrize("b,nw,c", OR_SHAPES + [(64, 32768, 1), (5, 7, 0),
+                                                (3, 1, 5), (3, 300, 5000)])
+def test_or_scatter_new_cuda_matches_plain(cuda, b, nw, c, n_ids):
+    """The fresh-table entry equals its plain version."""
+    s = _or_edge_slots(b, nw, c, 2)
+    got = tops.or_scatter_new(s.to(cuda), nw, n_ids)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), tops.or_scatter_new(s, nw, n_ids))
+
+
+def test_or_scatter_entries_count_and_refuse(cuda):
+    """Each launch of either new entry counts once under ``or_scatter``
+    (none for a call with no id); ids of the wrong type or layout are
+    refused before any launch."""
+    tops.reset_launches()
+    words = torch.zeros((2, 5), dtype=torch.int32, device=cuda)
+    ids = torch.zeros((2, 3), dtype=torch.int32, device=cuda)
+    tops.or_scatter_(words, ids[:, :0])
+    tops.or_scatter_new(ids[:, :0], 5)
+    assert tops.LAUNCHES["or_scatter"] == 0
+    tops.or_scatter_(words, ids)
+    tops.or_scatter_new(ids, 5)
+    assert tops.LAUNCHES["or_scatter"] == 2
+    with pytest.raises(TypeError):
+        tops.or_scatter_(words.long(), ids)
+    with pytest.raises(TypeError):
+        tops.or_scatter_new(ids.long(), 5)
+    with pytest.raises(ValueError, match="not contiguous"):
+        tops.or_scatter_(words, torch.zeros((3, 2), dtype=torch.int32,
+                                            device=cuda).t())
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES["or_scatter"] == 2
+
+
 PRUNE_C = [1, 33, 40, 74, 96, 128, 200, 1024]
 
 

@@ -159,6 +159,94 @@ def test_or_scatter_idempotent_and_sign_bit():
     np.testing.assert_array_equal(tops.or_scatter(got, slots).numpy(), want)
 
 
+def _edge_ids(rng, b, nw, c):
+    """Ids over [-8, NW*32 + 8) with the edge lanes forced in: a negative
+    id, a duplicate, bit 31 of the last word and one id past the table."""
+    ids = rng.integers(-8, nw * 32 + 8, (b, c)).astype(np.int32)
+    edges = [-1, 5, 5, nw * 32 - 1, nw * 32]
+    k = min(c, len(edges))
+    ids[:, :k] = np.array(edges[:k], np.int32)
+    return ids
+
+
+def _repro_or_scatter(words, slots):
+    """``repro``'s interpret kernel and jnp reference, which must agree
+    (with no slot, C = 0, the reference alone: the Pallas interpreter cannot
+    run a zero-width block)."""
+    w, s = jnp.asarray(words), jnp.asarray(slots)
+    want = np.asarray(jref.or_scatter_ref(w, s))
+    if slots.shape[-1]:
+        np.testing.assert_array_equal(
+            np.asarray(jops.or_scatter_interpret(w, s)), want)
+    return want
+
+
+@pytest.mark.parametrize("c", [1, 32, 2048])
+@pytest.mark.parametrize("nw", [1, 8, 1000])
+@pytest.mark.parametrize("b", [1, 3, 64])
+def test_or_scatter_inplace_matches_repro(b, nw, c):
+    """The in-place entry sets what ``repro``'s out-of-place kernel sets,
+    in the very tensor it was given."""
+    rng = np.random.default_rng(b * 7919 + nw * 31 + c)
+    words = rng.integers(-2 ** 31, 2 ** 31, (b, nw),
+                         dtype=np.int64).astype(np.int32)
+    ids = _edge_ids(rng, b, nw, c)
+    want = _repro_or_scatter(words, ids)
+    t = torch.from_numpy(words.copy())
+    ptr = t.data_ptr()
+    got = tops.or_scatter_(t, torch.from_numpy(ids))
+    assert got is t and got.data_ptr() == ptr
+    np.testing.assert_array_equal(t.numpy(), want)
+
+
+@pytest.mark.parametrize("n_ids", [2 ** 20, 2 ** 20 + 1, 3 * 2 ** 20])
+def test_or_scatter_visited_slots_match_repro(n_ids):
+    """With ``n_ids`` both new entries set ``repro``'s visited slots
+    (``core/search.py`` ``_visited_slot``: identity up to 2^20 ids, the
+    uint32 multiply-shift hash beyond), negative ids dropped."""
+    from repro.core import search as jsearch
+    n_slots, _ = jsearch._visited_spec(n_ids)
+    assert (n_slots, tref.visited_spec(n_ids)[0]) == (2 ** 20, 2 ** 20)
+    nw = n_slots // 32
+    rng = np.random.default_rng(n_ids)
+    b, c = 3, 64
+    words = rng.integers(-2 ** 31, 2 ** 31, (b, nw),
+                         dtype=np.int64).astype(np.int32)
+    ids = rng.integers(-4, n_ids, (b, c)).astype(np.int32)
+    ids[:, :3] = [-1, n_ids - 1, 2 ** 31 - 1]
+    jids = jnp.asarray(ids)
+    slots = np.asarray(jnp.where(
+        jids >= 0, jsearch._visited_slot(jnp.where(jids >= 0, jids, 0),
+                                         n_ids), n_slots))
+    want = _repro_or_scatter(words, slots)
+    t = torch.from_numpy(words.copy())
+    tops.or_scatter_(t, torch.from_numpy(ids), n_ids)
+    np.testing.assert_array_equal(t.numpy(), want)
+    fresh = _repro_or_scatter(np.zeros_like(words), slots)
+    np.testing.assert_array_equal(
+        tops.or_scatter_new(torch.from_numpy(ids), nw, n_ids).numpy(), fresh)
+
+
+@pytest.mark.parametrize("b,nw,c", [(1, 1, 0), (3, 7, 0), (3, 7, 5),
+                                    (2, 1001, 300), (4, 31251, 2048),
+                                    (2, 8193, 64)])
+def test_or_scatter_new_matches_repro(b, nw, c):
+    """The fresh-table entry equals ``repro``'s kernel on a zero table: odd
+    widths (31,251 words: the rare list at N = 1M), C = 0, and the rare
+    list's sentinel bit n_ids, which lies inside the table."""
+    rng = np.random.default_rng(b * nw + c)
+    ids = _edge_ids(rng, b, nw, c) if c else np.zeros((b, 0), np.int32)
+    n_ids = nw * 32 - 33                     # a rare list over n_ids ids
+    if c > 5:
+        ids[:, -1] = n_ids                   # the sentinel (a clipped pad)
+    want = _repro_or_scatter(np.zeros((b, nw), np.int32), ids)
+    got = tops.or_scatter_new(torch.from_numpy(ids), nw)
+    assert got.dtype == torch.int32 and got.shape == (b, nw)
+    np.testing.assert_array_equal(got.numpy(), want)
+    if c > 5:
+        assert (want[:, n_ids >> 5] >> (n_ids & 31) & 1).all()
+
+
 # ---------------------------------------------------------------------------
 # prune_scan
 # ---------------------------------------------------------------------------
@@ -429,6 +517,9 @@ def test_cpu_dispatch_counts_no_launch():
                             for a in gather_inputs(rng, 2, 9, 40)))
     tops.or_scatter(torch.zeros((1, 2), dtype=torch.int32),
                     torch.zeros((1, 3), dtype=torch.int32))
+    tops.or_scatter_(torch.zeros((1, 2), dtype=torch.int32),
+                     torch.zeros((1, 3), dtype=torch.int32), 5)
+    tops.or_scatter_new(torch.zeros((1, 3), dtype=torch.int32), 2)
     dp, dcc = prune_inputs(rng, 2, 8)
     tops.prune_scan(torch.from_numpy(dp), torch.from_numpy(dcc), 1.0, 4)
     tops.pq_scan(torch.zeros((5, 4), dtype=torch.uint8),

@@ -132,6 +132,48 @@ def test_pipelined_matches_single_shot(shared_ds, port, mode):
                 f"{mode} async={async_readback}: {f}"
 
 
+@pytest.mark.parametrize("mode", ["post", "spec_in"])
+def test_in_place_visited_repeatable_and_consumed(shared_ds, shared_engine,
+                                                  port, mode):
+    """The hop updates the visited words in place: the compacting search
+    with the async readback, run twice on one batch, answers the same each
+    time, as the single-shot search and as ``repro``; ``run_hops`` consumes
+    the state it is given (the returned state holds its visited tensor,
+    changed), and a clone taken before resumes exactly as it did."""
+    ds, e, pe = shared_ds, shared_engine, port
+    nq = ds.queries.shape[0]
+    sels = make_sliding_range_selectors(e, 0.30, nq)
+    tqf = t_stack_filters([s.plan(pe.config.ql, pe.config.cap).qfilter
+                           for s in t_make_sliding(pe, 0.30, nq)])
+    p_jax, params = _params(mode, 1)
+    want = search_mod.filtered_search_pipelined(
+        e.store, e.codes, e.codebook, e.mem,
+        stack_filters([s.plan(e.config.ql, e.config.cap).qfilter
+                       for s in sels]), jnp.asarray(ds.queries), e.medoid,
+        p_jax)
+    args = (pe.store, pe.codes, pe.codebook, pe.mem, tqf, ds.queries,
+            pe.medoid, params)
+    runs = [tsearch.filtered_search_pipelined(*args, hop_chunk=8,
+                                              min_bucket=2,
+                                              async_readback=True)
+            for _ in range(2)]
+    single = tsearch.filtered_search(*args)
+    for f in tsearch.SearchResult._fields:
+        assert torch.equal(getattr(runs[1], f), getattr(runs[0], f)), f
+        assert torch.equal(getattr(runs[0], f), getattr(single, f)), f
+    _assert_same(want, runs[0], f"{mode}: compacted, async readback")
+
+    ctx, st = tsearch.init_search(*args)
+    before = tsearch.HopState(*(t.clone() for t in st))
+    out = tsearch.run_hops(pe.store, pe.codes, pe.mem, ctx, st, 4, params)
+    assert out.visited is st.visited
+    assert not torch.equal(st.visited, before.visited)
+    again = tsearch.run_hops(pe.store, pe.codes, pe.mem, ctx, before, 4,
+                             params)
+    for f, a, b in zip(tsearch.HopState._fields, again, out):
+        assert torch.equal(a, b), f
+
+
 def test_engine_search_matches_repro(shared_ds, shared_engine, port):
     """The routed engine path under the speculative policy on mixed
     label / label_and / range / hybrid selectors: mechanisms, ids and every
