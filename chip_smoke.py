@@ -75,6 +75,21 @@ Phases, each printing one JSON line:
    ``prune_scan`` launched), and serves the label batch under the fault
    plan ``rate=0.1,seed=7`` (faults, retries, degraded, recall against the
    clean batch; every id of an undegraded query passes exact membership).
+8. disk — the same engine (after phase 7's inserts) spilled with
+   ``to_disk`` to slab files under ``build/`` (write seconds, file and stub
+   bytes), then, on the disk backend, what ran on the device backend just
+   before the spill: the phase-4 label batch under the post, strict_in,
+   speculative (pre and spec_in routes) and strict_pre policies, the
+   phase-7 label batch under the fault plan, and 8 scan-rung requests
+   through ``approx_scan_batch``. Ids, distances, routes and integer
+   counters must equal the device backend's, and each run must launch the
+   same kernels through the same ``ops`` entries. Per run: pages/query
+   modeled and measured, the page cache's hit rate, read-ahead pages,
+   attribute probes, gated skips and reads, p50/p95 µs per page; the
+   speculative run again on a fresh store after ``fsync`` and
+   ``posix_fadvise(DONTNEED)`` dropped the file from the OS page cache
+   (the fall in ``/proc/meminfo``'s ``Cached`` printed beside it). The
+   slabs are deleted after.
 
 Phase 2 also covers approx_probe and l2_rerank (the latter against its
 plain version within rtol=1e-5, atol=1e-5·max(|v|²+|q|²), and with
@@ -83,7 +98,9 @@ also inserts the same batch on the card and on the CPU copy, runs the
 fault plan on both and saves on the card to load on the CPU.
 
 Then a ``kernels`` line (launches of hop_fused, or_scatter and prune_scan
-from phase 4, of pq_scan from phase 5, of approx_probe and l2_rerank from
+from phase 4 (each row also lists its launches in every phase, phase 8's
+included, and the line its ``hop_fused_gather``, ``or_scatter_`` and
+``pq_scan_gather`` calls in phase 8), of pq_scan from phase 5, of approx_probe and l2_rerank from
 phase 6; times from phase 2: hop_fused's of the gathered entry with the slab
 entry's beside it, or_scatter's of the in-place entry with the fresh-table
 and slab rows beside it, prune_scan's with the no-prune row beside it,
@@ -116,12 +133,13 @@ FULL_N = 1_000_000
 MIN_N = 250_000
 TIME_LIMIT_S = 1200.0           # the smoke's limit, kernel builds included
 MARGIN_S = 150.0
-# seconds of the full-size, serving, ops and lifecycle phases per corpus
-# row, scaled linearly: at N=1M on an NVIDIA H100 80GB HBM3 at 700 W the
-# full-size phase took 281-394 s and the serving phase 46-56 s; the ops and
-# lifecycle phases add ~150 s; host time varies by up to 40% between
+# seconds of the full-size, serving, ops, lifecycle and disk phases per
+# corpus row, scaled linearly: at N=1M on an NVIDIA H100 80GB HBM3 at 700 W
+# the full-size phase took 217-394 s and the serving phase 29-56 s; the ops
+# and lifecycle phases add ~50-150 s and the disk phase ~55 s (its 8.3 GB
+# of slabs, written in ~10 s); host time varies by up to 40% between
 # machines
-FULL_S_PER_ROW = 750.0 / 1_000_000
+FULL_S_PER_ROW = 850.0 / 1_000_000
 
 
 def emit(obj: dict) -> None:
@@ -566,11 +584,11 @@ def _answer(x):
     return [r.ids for r in results], [r.dists for r in results], stats
 
 
-def compare_results(label, got, want) -> None:
+def compare_results(label, got, want, exact: bool = False) -> None:
     """Two answers to the same requests, each an ``Index``'s ``(results,
     QueryStats)`` or an engine's ``(ids, dists, stats)``: routes, ids and
     integer counters (fault counters included) equal, distances
-    allclose."""
+    allclose (equal with ``exact``)."""
     import numpy as np
     (ig, dg, sg), (ic, dc, sc) = _answer(got), _answer(want)
     assert sg.mechanism == sc.mechanism, f"{label}: routes differ"
@@ -582,7 +600,8 @@ def compare_results(label, got, want) -> None:
     for a, b in zip(ig, ic):
         assert np.array_equal(a, b), f"{label}: ids differ"
     for a, b in zip(dg, dc):
-        assert np.allclose(a, b, rtol=1e-6, atol=1e-6), f"{label}: dists"
+        assert (np.array_equal(a, b) if exact else
+                np.allclose(a, b, rtol=1e-6, atol=1e-6)), f"{label}: dists"
 
 
 # ---------------------------------------------------------------------------
@@ -852,12 +871,12 @@ def hop_profile(e, ds, cfg, hops: int = 32) -> dict:
     ctx, st = search.init_search(e.store, e.codes, e.codebook, e.mem, qf,
                                  ds.queries, e.medoid, sp)
     mc = search._mc(e.mem, ctx, sp)
-    rec = search._issue(e.store, st)
+    rec = search._issue(e.store, st, sp)
     # a hop consumes its state (the visited words change in place): the
     # counted hop runs on a copy, the timed chunk on the seeded state
     once = search.HopState(*(t.clone() for t in st))
     n_ops = torch_ops(lambda: search._issue(e.store, search._hop_step(
-        e.store, e.codes, e.mem, sp, ctx, mc, once, rec)))
+        e.store, e.codes, e.mem, sp, ctx, mc, once, rec), sp))
     torch.cuda.synchronize(e.device)
     t0 = time.perf_counter()
     search.run_hops(e.store, e.codes, e.mem, ctx, st, hops, sp)
@@ -1126,7 +1145,8 @@ def serve_phase(e, ds, dev):
         out["cpu_scan_s"] = time.perf_counter() - t0
         first8 = (scan_res[:8], eng.QueryStats(**{
             f.name: getattr(scan_st, f.name)[:8]
-            for f in dataclasses.fields(eng.QueryStats)}))
+            for f in dataclasses.fields(eng.QueryStats)
+            if f.name != "disk"}))
         compare_results("approx_scan card vs CPU", first8, cpu_res)
         out["scan"]["card_equals_cpu_on"] = 8
     return out, index
@@ -1368,6 +1388,217 @@ def lifecycle_phase(index, ds, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the disk tier under the full-size engine
+# ---------------------------------------------------------------------------
+
+# the disk phase's runs of the phase-4 label batch: (label, policy); the
+# routed run sends queries to the pre route and to speculative in-filtering
+DISK_RUNS = (("label/post", "post"), ("label/strict_in", "strict_in"),
+             ("label/speculative", "speculative"),
+             ("label/strict_pre", "strict_pre"))
+DISK_ENTRIES = SEARCH_ENTRIES + ("hop_fused_gather", "hop_fused")
+
+
+def _counted(fn):
+    """``fn()`` with the kernel launches and ``ops`` entry calls it made:
+    ``(result, launches, entry_calls)``."""
+    from repro_torch.kernels import ops
+    before = ops.snapshot()
+    with entry_calls(*DISK_ENTRIES) as calls:
+        res = fn()
+    after = ops.snapshot()
+    return res, {k: after[k] - before[k] for k in after}, dict(calls)
+
+
+def _meminfo() -> dict:
+    """``/proc/meminfo``'s fields in bytes (the host's page cache)."""
+    out = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            k, v = line.split(":", 1)
+            v = v.split()
+            out[k] = int(v[0]) * (1024 if v[1:] == ["kB"] else 1)
+    return out
+
+
+def _disk_line(ds, stats, n_queries: int, seconds: float) -> dict:
+    """One disk run's numbers: pages/query modeled (``io_pages``) and
+    measured (pages read from the slab file, read-ahead included), the page
+    cache's hit rate, the attribute probes and per-page read latency."""
+    import numpy as np
+    snap = ds.snapshot()
+    return {
+        "pages_per_query_modeled": float(np.mean(stats.io_pages)),
+        "pages_per_query_measured": snap["pages_read"] / n_queries,
+        "records_fetched": snap["records_fetched"],
+        "hit_rate": snap["hit_rate"], "hits": snap["hits"],
+        "misses": snap["misses"], "evictions": snap["evictions"],
+        "readahead_pages": snap["readahead_pages"],
+        "readahead_hits": snap["readahead_hits"],
+        "attr_probes": snap["attr_probes"],
+        "gated_skips": snap["gated_skips"],
+        "attr_reads": snap["attr_reads"],
+        "gated_share": (snap["gated_skips"] / snap["attr_probes"]
+                        if snap["attr_probes"] else 0.0),
+        "faults": snap["faults"], "retries": snap["retries"],
+        "degraded": snap["degraded"],
+        "p50_page_us": snap["p50_page_us"],
+        "p95_page_us": snap["p95_page_us"], "preads": snap["preads"],
+        # the store keeps its first 4,096 timing samples (serial and batch
+        # together): the percentiles cover those, not every pread
+        "page_us_samples": snap["n_samples"],
+        "seconds": seconds, "qps": n_queries / seconds,
+        "mechanisms": dict(collections.Counter(stats.mechanism)),
+    }
+
+
+def disk_phase(index, ds, dev) -> dict:
+    """Spill the full-size engine (after phase 7's inserts) to slab files
+    under ``build/`` with ``to_disk`` and rerun, on the disk backend, what
+    ran on the device backend just before the spill: the phase-4 label
+    batch under the post, strict_in, speculative (pre and spec_in routes)
+    and strict_pre policies, the phase-7 label batch under the fault plan
+    ``rate=0.1,seed=7``, and 8 scan-rung requests through
+    ``approx_scan_batch``. Every answer must equal the device backend's
+    (ids, distances, routes and integer counters, the ladder's included),
+    and every run must launch the same kernels through the same ``ops``
+    entries as on the device backend. The speculative run is repeated on a
+    fresh store after the slab file is written back and dropped from the
+    OS page cache (``fsync``, then ``posix_fadvise(DONTNEED)``). Launch counts of the disk runs are
+    returned under ``launches``, entry calls under ``entry_calls``; the
+    slab directory is deleted at the end."""
+    import os
+    import shutil
+    import torch
+    from repro_torch import api
+    from repro_torch.core import engine as eng
+    from repro_torch.core.faults import parse_plan
+    from repro_torch.data.synth import make_selectors
+    from repro_torch.kernels import ops
+    from repro_torch.storage import DiskRecordStore
+
+    e = index.engine
+    nq = ds.queries.shape[0]
+    sels = make_selectors(ds, e, "label")
+    plan = parse_plan("rate=0.1,seed=7")
+    scan_reqs = [dsl_request(api, ds, i, ("label", "range", "hybrid")[i % 3],
+                             "tag") for i in range(8)]
+    runs = {label: (lambda p=policy: e.search(
+        ds.queries, sels, eng.SearchConfig(policy=p)))
+        for label, policy in DISK_RUNS}
+    runs["label/faults rate=0.1,seed=7"] = lambda: e.search(
+        ds.queries, sels, eng.SearchConfig(fault_plan=plan))
+    runs["scan/8"] = lambda: _answer(index.approx_scan_batch(
+        scan_reqs, with_stats=True, with_metadata=False))
+
+    # the device backend's answers, launches and entry calls
+    want = {}
+    for label, fn in runs.items():
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        res, launches, calls = _counted(fn)
+        torch.cuda.synchronize(dev)
+        want[label] = (res, launches, calls, time.perf_counter() - t0)
+
+    path = ROOT / "build" / "smoke_slabs"
+    shutil.rmtree(path, ignore_errors=True)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    out = {"n": e.n, "disk_free_bytes": shutil.disk_usage(path.parent).free}
+    emit({"phase": "disk_start", **out})
+    try:
+        t0 = time.perf_counter()
+        e.to_disk(str(path))
+        out["spill_s"] = time.perf_counter() - t0
+        store = e.disk_store
+        out["file_bytes"] = store.file_bytes
+        out["stub_bytes"] = store.stub_bytes()
+        out["slab_pages"] = store.layout.slab_pages
+        out["pages_std"], out["pages_dense"] = store.pages_std, \
+            store.pages_dense
+        assert store.n == e.n and e.store.n == 1
+        emit({"phase": "disk_spill", **out})
+
+        ops.reset_launches()
+        totals = collections.Counter()
+        lines = {}
+        for label, fn in runs.items():
+            store.reset_counters()
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            res, launches, calls = _counted(fn)
+            torch.cuda.synchronize(dev)
+            secs = time.perf_counter() - t0
+            w_res, w_launches, w_calls, w_secs = want[label]
+            compare_results(f"disk vs device: {label}", res, w_res,
+                            exact=True)
+            assert launches == w_launches, \
+                f"{label}: launches {launches} != device {w_launches}"
+            assert calls == w_calls, \
+                f"{label}: entry calls {calls} != device {w_calls}"
+            assert res[2].disk is not None
+            totals.update(calls)
+            n = len(res[0])
+            lines[label] = {**_disk_line(store, res[2], n, secs),
+                            "device_seconds": w_secs,
+                            "launches": launches, "entry_calls": calls}
+            emit({"phase": "disk_run", "run": label, "pass": "after_write",
+                  **lines[label]})
+        out["launches"] = ops.snapshot()
+
+        spec = lines["label/speculative"]["mechanisms"]
+        assert spec.get("pre", 0) > 0 and spec.get("in", 0) > 0, \
+            f"the routed run took no pre or no spec_in route: {spec}"
+        assert lines["label/strict_in"]["gated_skips"] > 0, \
+            "strict_in skipped no attribute page"
+        faults = lines["label/faults rate=0.1,seed=7"]
+        assert faults["faults"] > 0, "the plan drew no fault on disk"
+        assert lines["scan/8"]["records_fetched"] > 0
+
+        # a cold pass: the file written back and dropped from the OS page
+        # cache (DONTNEED leaves dirty pages, hence the fsync first), a
+        # fresh store (empty page cache)
+        fd = os.open(str(path / "records.slab"), os.O_RDONLY)
+        try:
+            before = _meminfo()
+            t0 = time.perf_counter()
+            os.fsync(fd)
+            fsync_s = time.perf_counter() - t0
+            os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+            after = _meminfo()
+        finally:
+            os.close(fd)
+        out["evict"] = {
+            "fsync_s": fsync_s, "file_bytes": store.file_bytes,
+            "dirty_bytes_before": before["Dirty"],
+            "cached_bytes_before": before["Cached"],
+            "cached_bytes_after": after["Cached"],
+            "cached_bytes_dropped": before["Cached"] - after["Cached"]}
+        emit({"phase": "disk_evict", **out["evict"]})
+        e.attach_disk_store(DiskRecordStore(str(path)))
+        label = "label/speculative"
+        t0 = time.perf_counter()
+        res, launches, calls = _counted(runs[label])
+        torch.cuda.synchronize(dev)
+        secs = time.perf_counter() - t0
+        compare_results(f"disk vs device: {label} (cold)", res,
+                        want[label][0], exact=True)
+        assert calls == want[label][2]
+        cold = _disk_line(e.disk_store, res[2], len(res[0]), secs)
+        emit({"phase": "disk_run", "run": label, "pass": "after_fadvise",
+              **cold})
+        out["io_model"] = dataclasses.asdict(e.calibrate_io())
+    finally:
+        if e.disk_store is not None:
+            e.disk_store.close()
+        shutil.rmtree(path, ignore_errors=True)
+    out["runs"] = lines
+    out["cold"] = cold
+    out["entry_calls"] = dict(totals)
+    out["equal"] = True
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 KERNELS = {
     "hop_fused": ("hop_fused/gather",
@@ -1465,8 +1696,14 @@ def main(argv=None) -> int:
     life["seconds"] = time.perf_counter() - t0
     emit({"phase": "lifecycle", **life})
 
+    t0 = time.perf_counter()
+    disk = disk_phase(index, ds, dev)
+    disk["seconds"] = time.perf_counter() - t0
+    emit({"phase": "disk", **{k: v for k, v in disk.items()
+                              if k not in ("runs", "cold")}})
+
     launches = {"full": full["launches"], "serve": serve["launches"],
-                "ops": opsr["launches"]}
+                "ops": opsr["launches"], "disk": disk["launches"]}
     rows = []
     for name, (key, source, replaces) in KERNELS.items():
         count = launches[LAUNCH_PHASE[name]][name]
@@ -1492,6 +1729,10 @@ def main(argv=None) -> int:
               kern["results"]["launch_floor/approx_probe"]["ms"],
           "full_phase_s": full["seconds"], "serve_phase_s": serve["seconds"],
           "ops_phase_s": opsr["seconds"], "lifecycle_phase_s": life["seconds"],
+          "disk_phase_s": disk["seconds"],
+          "disk_entry_calls": {k: disk["entry_calls"].get(k, 0)
+                               for k in ("hop_fused_gather", "or_scatter_",
+                                         "pq_scan_gather")},
           "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

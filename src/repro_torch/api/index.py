@@ -19,8 +19,10 @@ the card). An index built elsewhere — another port index's
 ``engine.arrays()``, or the JAX package's state as numpy — is wrapped as
 ``Index(FilteredANNEngine.from_arrays(arrays, config, device), vocab,
 schema, defaults)``. Checkpoints are the JAX package's format (``ckpt``), so
-an index saved by either package loads in the other. The disk store and
-sharded builds are later slices of the port and raise
+an index saved by either package loads in the other, on either backend:
+``store="disk"`` serves the records from page-aligned slab files
+(``repro_torch.storage``), which a checkpoint carries in ``step_N/slabs``.
+Sharded builds are a later slice of the port and raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -28,9 +30,12 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
+import tempfile
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.api.filters import (FilterExpr, _check_fields, compile_expr,
                                      eval_mask)
@@ -46,6 +51,8 @@ from repro_torch.core.ranges import MultiRangeStore, RangeStore
 from repro_torch.core.records import RecordStore
 from repro_torch.core.selectors import (MaskSelector, MatchAllSelector,
                                         Selector)
+from repro_torch.storage import slab as slab_mod
+from repro_torch.storage.disk import DiskRecordStore
 
 _META_FILE = "index_meta.json"
 _FORMAT = 2          # checkpoint format: 2 = schema-first multi-field
@@ -147,6 +154,8 @@ class Index:
               numeric_field: Optional[str] = None,
               defaults: SearchConfig = SearchConfig(),
               store: str = "device",
+              storage_dir: Optional[str] = None,
+              storage_config=None,
               shards: int = 0,
               device=None) -> "Index":
         """Build an index over ``vectors`` + per-record metadata dicts on
@@ -158,15 +167,23 @@ class Index:
         single-field spelling kept from ``repro``: it pins ``Schema.nums``
         to that one field with no inference; pass a Schema instead.
 
-        ``store="disk"`` and ``shards > 1`` are later slices of the port and raise
-        ``NotImplementedError``.
+        ``store="disk"`` spills the built records to page-aligned slab
+        files at ``storage_dir`` (a temp dir when omitted) and serves every
+        record read through the disk tier's page cache — results are
+        bit-identical to the device backend. ``storage_config`` is a
+        :class:`repro_torch.storage.StorageConfig` (cache size, read-ahead,
+        device budget). Inserts require the device backend.
+
+        ``shards > 1`` is a later slice of the port and raises
+        ``NotImplementedError``; with ``store="disk"`` it is refused with
+        ``repro``'s ValueError.
         """
         if store not in ("device", "disk"):
             raise ValueError(f"unknown store backend {store!r} "
                              "(expected 'device' or 'disk')")
-        if store == "disk":
-            raise NotImplementedError("Index.build(store='disk'): the disk "
-                                      "tier is " + ROADMAP_LATER.format(6))
+        if shards > 1 and store == "disk":
+            raise ValueError("shards > 1 requires the device backend: "
+                             "the disk tier owns the fetch seam")
         if shards > 1:
             raise NotImplementedError(
                 "Index.build(shards > 1): sharding on torch.distributed is "
@@ -193,6 +210,10 @@ class Index:
         engine = FilteredANNEngine.build(
             vectors, offsets, label_flat, max(1, len(vocab)), values, config,
             device=device)
+        if store == "disk":
+            if storage_dir is None:
+                storage_dir = tempfile.mkdtemp(prefix="repro_slabs_")
+            engine.to_disk(storage_dir, storage_config)
         return cls(engine, vocab, schema, defaults)
 
     def insert(self, vectors: np.ndarray,
@@ -234,7 +255,9 @@ class Index:
         trimmed to the valid record count — capacity pads are a live-index
         artifact, not index state. Per-field range structures save stacked:
         (F, n) sorted indexes, (F, B+1) bounds, (F, Q) quantiles, (n, F)
-        values and codes. Bloom words are the host label store's uint32."""
+        values and codes. Bloom words are the host label store's uint32.
+        On the disk backend the records are not leaves: ``save`` copies the
+        slab files beside them."""
         e = self.engine
         n = e.n
         ls, rs = e.label_store, e.range_store
@@ -242,12 +265,18 @@ class Index:
         def host(t):
             return t[:n].cpu().numpy()
 
+        if e.disk_store is not None:
+            store_leaves = {}
+        else:
+            store_leaves = {
+                "store_vectors": host(e.store.vectors),
+                "store_neighbors": host(e.store.neighbors),
+                "store_dense_neighbors": host(e.store.dense_neighbors),
+                "store_rec_labels": host(e.store.rec_labels),
+                "store_rec_values": host(e.store.rec_values),
+            }
         return {
-            "store_vectors": host(e.store.vectors),
-            "store_neighbors": host(e.store.neighbors),
-            "store_dense_neighbors": host(e.store.dense_neighbors),
-            "store_rec_labels": host(e.store.rec_labels),
-            "store_rec_values": host(e.store.rec_values),
+            **store_leaves,
             "pq_codes": host(e.codes),
             "pq_centroids": e.codebook.centroids.cpu().numpy(),
             "ls_vec_offsets": ls.vec_offsets, "ls_vec_labels": ls.vec_labels,
@@ -274,15 +303,31 @@ class Index:
         and inside the step dir: array shapes differ across steps after
         inserts, so a fallback reads the meta of the step it restores.
         ``injector`` (``core.faults.FaultInjector``) makes leaf writes
-        flaky."""
+        flaky. On the disk backend the slab files are copied into
+        ``step_N/slabs`` and their sha256 rides the meta, which is written
+        after the copy: a save cut mid-copy leaves a step without meta, and
+        ``load`` falls back to the previous one."""
         tree = self._array_tree()
         prev = ckpt.latest_step(path)
         step = 0 if prev is None else prev + 1
         ckpt.save(path, step=step, tree=tree, async_write=False,
                   keep_last=2, injector=injector)
         e = self.engine
+        slab_meta = {}
+        if e.disk_store is not None:
+            slab_dir = os.path.join(path, f"step_{step}", "slabs")
+            os.makedirs(slab_dir, exist_ok=True)
+            for fn in (slab_mod.SLAB_FILE, slab_mod.META_FILE):
+                shutil.copy2(os.path.join(e.disk_store.path, fn),
+                             os.path.join(slab_dir, fn))
+            slab_meta = {
+                "backend": "disk",
+                "slab_sha256": ckpt.file_digest(
+                    os.path.join(slab_dir, slab_mod.SLAB_FILE)),
+            }
         meta = {
             "format": _FORMAT,
+            **slab_meta,
             "config": dataclasses.asdict(e.config),
             "defaults": dataclasses.asdict(self.defaults),
             "medoid": int(e.medoid),
@@ -312,8 +357,10 @@ class Index:
         ``step_K.quarantined`` and the previous step is restored instead;
         only when no intact step remains does the error propagate. Format-1
         checkpoints (one numeric field, flat range arrays) load through
-        :func:`_shim_legacy_checkpoint`. ``shards > 1`` and checkpoints of
-        the disk backend are later slices of the port."""
+        :func:`_shim_legacy_checkpoint`. A checkpoint of the disk backend
+        serves from its ``step_N/slabs``, whose sha256 is checked against
+        the meta first (a mismatch is a corrupted step). ``shards > 1`` is a
+        later slice of the port."""
         if shards > 1:
             raise NotImplementedError(
                 "Index.load(shards > 1): sharding on torch.distributed is "
@@ -332,14 +379,16 @@ class Index:
             try:
                 with open(meta_fn) as fh:
                     meta = json.load(fh)
-                if meta.get("backend") == "disk":
-                    raise NotImplementedError(
-                        "Index.load of a disk-backend checkpoint: the disk "
-                        "tier is " + ROADMAP_LATER.format(6))
                 target = {k: ckpt.ArraySpec(tuple(v["shape"]),
                                             np.dtype(v["dtype"]))
                           for k, v in meta["arrays"].items()}
                 t = ckpt.restore(path, step, target)
+                if meta.get("backend") == "disk":
+                    sl = os.path.join(path, f"step_{step}", "slabs",
+                                      slab_mod.SLAB_FILE)
+                    if ckpt.file_digest(sl) != meta.get("slab_sha256"):
+                        raise ckpt.CheckpointCorruptionError(
+                            f"step {step}: slab file checksum mismatch")
                 break
             except (ckpt.CheckpointCorruptionError, json.JSONDecodeError,
                     OSError):
@@ -349,7 +398,12 @@ class Index:
         if meta.get("format", 1) < 2:
             t, meta = _shim_legacy_checkpoint(t, meta)
 
-        n_rec = t["store_vectors"].shape[0]
+        ds = None
+        if meta.get("backend") == "disk":
+            ds = DiskRecordStore(os.path.join(path, f"step_{step}", "slabs"))
+            n_rec = ds.n
+        else:
+            n_rec = t["store_vectors"].shape[0]
         label_store = LabelStore(
             n_vectors=n_rec, n_labels=meta["n_labels"],
             vec_offsets=t["ls_vec_offsets"], vec_labels=t["ls_vec_labels"],
@@ -370,16 +424,22 @@ class Index:
         # which builder made the graph: the port serves and inserts through
         # the batched path whichever it was, as the JAX package does
         config.pop("builder", None)
-        engine = FilteredANNEngine.from_arrays(
-            {"vectors": t["store_vectors"], "neighbors": t["store_neighbors"],
-             "dense_neighbors": t["store_dense_neighbors"],
-             "rec_labels": t["store_rec_labels"],
-             "rec_values": t["store_rec_values"], "codes": t["pq_codes"],
-             "centroids": t["pq_centroids"], "medoid": meta["medoid"],
-             "blooms": label_store.blooms,
-             "bucket_codes": range_store.bucket_codes},
-            IndexConfig(**config), device=device, label_store=label_store,
-            range_store=range_store)
+        arrays = {"codes": t["pq_codes"], "centroids": t["pq_centroids"],
+                  "medoid": meta["medoid"], "blooms": label_store.blooms,
+                  "bucket_codes": range_store.bucket_codes}
+        if ds is not None:
+            engine = FilteredANNEngine.from_disk(
+                ds, arrays, IndexConfig(**config), device=device,
+                label_store=label_store, range_store=range_store)
+        else:
+            engine = FilteredANNEngine.from_arrays(
+                {**arrays, "vectors": t["store_vectors"],
+                 "neighbors": t["store_neighbors"],
+                 "dense_neighbors": t["store_dense_neighbors"],
+                 "rec_labels": t["store_rec_labels"],
+                 "rec_values": t["store_rec_values"]},
+                IndexConfig(**config), device=device,
+                label_store=label_store, range_store=range_store)
         vocab = {(f, v): lab for f, v, lab in meta["vocab"]}
         defaults = dict(meta["defaults"])
         if isinstance(defaults.get("fault_plan"), dict):
@@ -540,7 +600,9 @@ class Index:
         A DSL filter (or none) is evaluated exactly on the host with numpy,
         as ``repro`` does, so the ids equal ``repro``'s; a raw ``Selector``
         is verified on the index's device
-        (``engine.brute_force_filtered``)."""
+        (``engine.brute_force_filtered``). On the disk backend the records
+        are streamed off the slab files (``DiskRecordStore.scan_records``,
+        which bypasses the page cache)."""
         k = request.k if request.k is not None else self.defaults.k
         n = self.n_vectors
         q = np.asarray(request.query, np.float32).reshape(-1)
@@ -550,6 +612,14 @@ class Index:
         if q.shape[0] != self.dim:
             q = np.pad(q, (0, self.dim - q.shape[0]))
         f = request.filter
+        ds = self.engine.disk_store
+        if ds is not None:
+            recs = {k: torch.from_numpy(v).to(self.engine.device)
+                    for k, v in ds.scan_records(0, n).items()}
+        else:
+            s = self.store
+            recs = {"vectors": s.vectors[:n], "rec_labels": s.rec_labels[:n],
+                    "rec_values": s.rec_values[:n]}
         if f is None or isinstance(f, FilterExpr):
             if f is not None:
                 _check_fields(f, self)
@@ -559,12 +629,12 @@ class Index:
             mask[f.valid_ids] = True
         elif isinstance(f, Selector):
             plan = f.plan(self.config.ql, self.config.cap, self.config.qr)
-            s = self.store
-            return brute_force_filtered(s.vectors[:n], s.rec_labels[:n],
-                                        s.rec_values[:n], plan.qfilter, q, k)
+            return brute_force_filtered(recs["vectors"], recs["rec_labels"],
+                                        recs["rec_values"], plan.qfilter, q,
+                                        k)
         else:
             raise TypeError(f"unsupported filter {f!r}")
-        vecs = self.store.vectors[:n].cpu().numpy()
+        vecs = recs["vectors"].cpu().numpy()
         d = np.sum((vecs - q[None, :]) ** 2, axis=1)
         d = np.where(mask, d, np.inf)
         order = np.argsort(d)[:k]

@@ -341,6 +341,14 @@ class Session:
     def pending(self) -> int:
         return len(self._pending)
 
+    # -- observability ---------------------------------------------------
+    def disk_stats(self) -> Optional[dict]:
+        """Cumulative disk-tier snapshot (page cache hit/miss/readahead
+        counters, measured page latency) when the index serves from the
+        disk backend; None on the device backend."""
+        ds = getattr(self.index.engine, "disk_store", None)
+        return None if ds is None else ds.snapshot()
+
     # -- context manager -------------------------------------------------
     def __enter__(self) -> "Session":
         return self

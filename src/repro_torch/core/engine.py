@@ -26,8 +26,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from repro_torch.core import cost_model, graph, pq as pq_mod, prefilter, \
-    search
+from repro_torch.core import cost_model, graph, io_sim, pq as pq_mod, \
+    prefilter, search
 from repro_torch.core.faults import FaultPlan
 from repro_torch.core.labels import (LabelStore, build_label_store,
                                      extend_label_store, padded_rows_from_csr,
@@ -39,6 +39,7 @@ from repro_torch.core.selectors import (InMemory, QueryFilter, Selector,
                                         filter_to_device, is_member,
                                         stack_filters)
 from repro_torch.device import resolve_device
+from repro_torch.storage import DiskRecordStore, StorageConfig
 
 ROADMAP_LATER = "a later slice of the port (ROADMAP queue A, item {})"
 
@@ -118,6 +119,10 @@ class QueryStats:
     faults: np.ndarray        # injected fault events (0 without a plan)
     retries: np.ndarray
     degraded: np.ndarray
+    disk: dict | None = None  # disk-tier counter delta for this batch
+                              # (cache hits/misses/hit_rate, pages_read,
+                              # readahead, gated_skips, measured p50 page
+                              # latency); None on the device backend
 
     @classmethod
     def empty(cls) -> "QueryStats":
@@ -146,6 +151,9 @@ class FilteredANNEngine:
         self._builder = None      # lazy IncrementalBuilder (insert path)
         self.calibration: cost_model.Calibration | None = None
         self.build_times: dict = {}
+        self.disk_store = None    # storage.DiskRecordStore on the disk backend
+        self.io_model: io_sim.IOModel | None = None
+                                  # fitted from measured reads (calibrate_io)
 
     def calibrate(self, source="BENCH_search.json") -> bool:
         """Swap the router's per-hop compute constants for measured ones
@@ -216,19 +224,21 @@ class FilteredANNEngine:
     def _assemble(cls, vectors, adj, dense, codes, codebook, medoid,
                   label_offsets, label_flat, n_labels, values, config, dev,
                   blooms, bucket_codes, rec_labels=None, rec_values=None,
-                  label_store=None, range_store=None):
+                  label_store=None, range_store=None, store=None):
         if label_store is None:
             label_store = build_label_store(
                 np.asarray(label_offsets, np.int64),
                 np.asarray(label_flat, np.int32), int(n_labels))
         if range_store is None:
             range_store = build_multi_range_store(values)
-        if rec_labels is None:
-            rec_labels = padded_vec_labels(label_store, config.max_labels)
-        if rec_values is None:
-            rec_values = range_store.values
-        store = make_record_store(vectors, adj, dense, rec_labels, rec_values,
-                                  dev)
+        if store is None:
+            if rec_labels is None:
+                rec_labels = padded_vec_labels(label_store,
+                                               config.max_labels)
+            if rec_values is None:
+                rec_values = range_store.values
+            store = make_record_store(vectors, adj, dense, rec_labels,
+                                      rec_values, dev)
         if blooms is None:
             blooms = label_store.blooms
         if bucket_codes is None:
@@ -278,9 +288,40 @@ class FilteredANNEngine:
             rec_labels=a["rec_labels"], rec_values=a["rec_values"],
             label_store=label_store, range_store=range_store)
 
+    @classmethod
+    def from_disk(cls, disk_store, arrays: dict, config: IndexConfig,
+                  device=None, label_store: LabelStore | None = None,
+                  range_store: MultiRangeStore | None = None
+                  ) -> "FilteredANNEngine":
+        """An engine on the disk backend over an open ``disk_store``
+        (``storage.DiskRecordStore``, e.g. a restored checkpoint's slabs):
+        ``arrays`` as :meth:`from_arrays` takes them, without the record
+        fields, which the slabs hold."""
+        dev = resolve_device(device)
+        a = {k: (v.cpu().numpy() if torch.is_tensor(v) else np.array(v))
+             for k, v in arrays.items()}
+        centroids = torch.from_numpy(
+            np.ascontiguousarray(a["centroids"], np.float32)).to(dev)
+        codebook = pq_mod.PQCodebook(centroids=centroids,
+                                     dim=disk_store.layout.dim)
+        codes = torch.from_numpy(np.ascontiguousarray(a["codes"])).to(dev)
+        eng = cls._assemble(
+            None, None, None, codes, codebook, int(a["medoid"]),
+            a.get("label_offsets"), a.get("label_flat"), a.get("n_labels"),
+            a.get("values"), config, dev, blooms=a["blooms"],
+            bucket_codes=a["bucket_codes"], label_store=label_store,
+            range_store=range_store, store=disk_store.stub_store(dev))
+        eng.attach_disk_store(disk_store)
+        return eng
+
     def arrays(self) -> dict:
         """This engine's state as numpy arrays, in the layout
-        :meth:`from_arrays` takes."""
+        :meth:`from_arrays` takes (device backend only: on the disk backend
+        the records live in ``disk_store``'s slab files)."""
+        if self.disk_store is not None:
+            raise ValueError("arrays(): the disk backend's records live in "
+                             f"its slab files ({self.disk_store.path}); "
+                             "take the arrays before to_disk")
         ls = self.label_store
         s = self.store
         return {
@@ -303,16 +344,46 @@ class FilteredANNEngine:
     def shard(self, shards: int) -> "FilteredANNEngine":
         if shards in (0, 1):
             return self
+        if self.disk_store is not None:
+            raise ValueError(
+                "sharded execution requires the device backend: the disk "
+                "tier's host fetch already owns the fetch_fn seam "
+                "(shard before to_disk, or serve from the device store)")
         raise NotImplementedError("shard(): sharding on torch.distributed "
                                   "is " + ROADMAP_LATER.format(7))
 
-    def to_disk(self, path: str, storage_config=None):
-        raise NotImplementedError("to_disk: the disk tier is "
-                                  + ROADMAP_LATER.format(6))
+    def to_disk(self, path: str, storage_config=None) -> "FilteredANNEngine":
+        """Switch this engine to the disk backend (``storage/disk.py``).
+
+        The record tensors are spilled to page-aligned slab files at
+        ``path`` and replaced by a 1-row stub carrying only shapes and page
+        counts — the device keeps the PQ codes and bloom/bucket words, and
+        every record byte flows through the disk store's fetch callable.
+        Results are bit-identical to the device backend (the slabs hold the
+        same float32/int32 values). In place; returns self."""
+        ds = DiskRecordStore.from_record_store(
+            path, self.store, n=self.n,
+            config=storage_config or StorageConfig())
+        self.attach_disk_store(ds)
+        return self
 
     def attach_disk_store(self, disk_store) -> None:
-        raise NotImplementedError("attach_disk_store: the disk tier is "
-                                  + ROADMAP_LATER.format(6))
+        """Adopt an open ``storage.DiskRecordStore`` (e.g. one over a
+        restored checkpoint's slabs) and drop the device record tensors."""
+        self.disk_store = disk_store
+        self.store = disk_store.stub_store(self.device)
+        self._builder = None      # drops its device copy of the records
+
+    def calibrate_io(self) -> "io_sim.IOModel | None":
+        """Fit :class:`io_sim.IOModel` from the disk tier's measured read
+        samples, replacing the modeled constants for latency reporting.
+        Returns the fitted model (None without a disk store or samples)."""
+        if self.disk_store is None or not self.disk_store.samples:
+            return None
+        self.io_model = io_sim.IOModel.calibrate_from_samples(
+            self.disk_store.samples,
+            page_bytes=self.disk_store.layout.page_bytes)
+        return self.io_model
 
     def insert(self, vectors: np.ndarray, label_offsets: np.ndarray,
                label_flat: np.ndarray, n_labels: int,
@@ -331,8 +402,14 @@ class FilteredANNEngine:
         stream forces a quantile refresh, which re-codes every row. The PQ
         codebook is not retrained: new vectors are encoded against the
         build-time centroids. Holders of a stale ``engine.store`` or
-        ``engine.mem`` must re-read them after an insert."""
+        ``engine.mem`` must re-read them after an insert. The disk backend
+        refuses inserts, as ``repro``'s does."""
         cfg = self.config
+        if self.disk_store is not None:
+            raise NotImplementedError(
+                "insert is not supported on the disk backend: slab files "
+                "are append-closed in this release — rebuild the index "
+                "(or insert on the device backend, then to_disk)")
         vectors = np.asarray(vectors, np.float32)
         m = vectors.shape[0]
         if m == 0:
@@ -479,6 +556,8 @@ class FilteredANNEngine:
             degraded=np.ones(B, np.int64))
         if B == 0:
             return out_ids, out_d, stats
+        ds = self.disk_store
+        disk_before = ds.snapshot() if ds is not None else None
         q_dev = torch.from_numpy(queries).to(self.device)
         qf_dev = filter_to_device(stack_filters([p.qfilter for p in plans]),
                                   self.device)
@@ -489,8 +568,15 @@ class FilteredANNEngine:
             top_ids, _ = prefilter.scan_all_gated(
                 self.codes, self.codebook, self.mem, qf, q_dev[i], rerank)
             pp = prefilter.PrefilterParams(l_rerank=rerank, k=scfg.k)
-            ids, dists, io, nv = prefilter._rerank_verify(
-                self.store, qf, q_dev[i], top_ids, pp)
+            if ds is None:
+                ids, dists, io, nv = prefilter._rerank_verify(
+                    self.store, qf, q_dev[i], top_ids, pp)
+            else:
+                tid = top_ids.cpu().numpy()
+                ids, dists, io, nv = prefilter._verify_fetched(
+                    qf, q_dev[i], top_ids,
+                    ds.fetch_host(np.where(tid >= 0, tid, 0)), pp,
+                    self.store.pages_std)
             est = cost_model.approx_scan_cost(
                 self.cost_inputs(plans[i], scfg), rerank)
             out_ids[i] = ids.cpu().numpy()
@@ -501,6 +587,8 @@ class FilteredANNEngine:
             stats.est_compute[i] = est.compute
             stats.explored[i] = rerank
             stats.n_valid[i] = int(nv)
+        if ds is not None:
+            stats.disk = ds.delta(disk_before, ds.snapshot())
         return out_ids, out_d, stats
 
     # ------------------------------------------------------------------
@@ -601,17 +689,26 @@ class FilteredANNEngine:
             eff = min(eff, scfgs[i].max_pool)
             groups.setdefault((r.mechanism, eff, scfgs[i]), []).append(i)
 
+        ds = self.disk_store
+        disk_before = ds.snapshot() if ds is not None else None
         for (mech, eff_l, scfg), idxs in groups.items():
             strict = scfg.policy in ("strict_in", "strict_pre", "basefilter")
             sub_q = np.ascontiguousarray(queries[idxs])
             sub_sel = [selectors[i] for i in idxs]
             sub_qf = stack_filters([plans[i].qfilter for i in idxs])
+            if ds is not None:
+                # arm the disk tier with this group's knobs: the fault plan
+                # (its host draws mirror the hop step's ladder) and the
+                # read-ahead window (depth - 1 scales it)
+                ds.fault_plan = scfg.fault_plan
+                ds.prefetch_depth = scfg.prefetch_depth
             if mech == "pre":
                 pp = prefilter.PrefilterParams(
                     l_rerank=eff_l + scfg.l_rerank_delta, k=scfg.k)
                 res = prefilter.prefilter_search(
                     self.store, self.codes, self.codebook, sub_sel, sub_qf,
-                    sub_q, pp, speculative=not strict)
+                    sub_q, pp, speculative=not strict,
+                    host_fetch=ds.fetch_host if ds is not None else None)
                 ids = res.ids.cpu().numpy()
                 dists = res.dists.cpu().numpy()
                 io = res.io_pages.numpy()
@@ -646,7 +743,9 @@ class FilteredANNEngine:
             res = search.filtered_search_pipelined(
                 self.store, self.codes, self.codebook, self.mem, sub_qf,
                 sub_q, self.medoid, sp, entries=entries,
-                hop_chunk=scfg.hop_chunk)
+                hop_chunk=scfg.hop_chunk,
+                fetch_fn=(ds.fetch_callable if ds is not None
+                          else search.local_fetch))
             r = {f: getattr(res, f).cpu().numpy()
                  for f in search.SearchResult._fields}
             prefetch = np.array([plans[i].pages_prefetch for i in idxs]) \
@@ -664,6 +763,8 @@ class FilteredANNEngine:
                 stats.faults[i] = int(r["faults"][j])
                 stats.retries[i] = int(r["retries"][j])
                 stats.degraded[i] = int(r["degraded"][j])
+        if ds is not None:
+            stats.disk = ds.delta(disk_before, ds.snapshot())
         return out_ids, out_d, stats
 
     # ------------------------------------------------------------------

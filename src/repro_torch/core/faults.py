@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 # decision streams: decorrelate the draw families sharing one seed
@@ -170,6 +171,53 @@ def read_spike(ids: torch.Tensor, hops: torch.Tensor,
     Accounting only — spikes feed the modeled latency, never results."""
     u = _uniform(ids, hops, plan.seed, _STREAM_SPIKE, 0)
     return u < _rate(plan.spike_rate, u)
+
+
+# ---------------------------------------------------------------------------
+# NumPy twins (the disk tier's host read path, storage/disk.py)
+#
+# The disk tier draws its faults on the host, where it reads the pages, but
+# the degraded-row substitution happens in the hop step on the tensors: both
+# must see the same draws, or a host-degraded row's zeros would be consumed.
+# The twins compute the hash in uint32 (wraparound on every product), round
+# the uint32 to float32, scale by the float32 2**-32 and compare against the
+# float32 rate, as the tensor draws and ``repro``'s twins do.
+# ---------------------------------------------------------------------------
+
+def _mix32_np(x: np.ndarray) -> np.ndarray:
+    x = (x ^ (x >> np.uint32(16))) * np.uint32(_MIX_A)
+    x = (x ^ (x >> np.uint32(15))) * np.uint32(_MIX_B)
+    return x ^ (x >> np.uint32(16))
+
+
+def _uniform_np(ids, hops, seed: int, stream: int,
+                attempt: int) -> np.ndarray:
+    key = np.uint32(_key(seed, stream, attempt))
+    with np.errstate(over="ignore"):    # uint32 wraparound is the point
+        u = _mix32_np(np.asarray(ids).astype(np.uint32) ^ key)
+        u = _mix32_np(u ^ (np.asarray(hops).astype(np.uint32)
+                           * np.uint32(_GOLDEN)))
+    return u.astype(np.float32) * np.float32(2.0 ** -32)
+
+
+def read_fail_np(ids, hops, attempt: int, plan: FaultPlan) -> np.ndarray:
+    return (_uniform_np(ids, hops, plan.seed, _STREAM_FAIL, attempt)
+            < np.float32(plan.read_fail_rate))
+
+
+def read_corrupt_np(ids, hops, attempt: int, plan: FaultPlan) -> np.ndarray:
+    if plan.corrupt_rate <= 0.0:
+        return np.zeros(np.broadcast(np.asarray(ids), np.asarray(hops)).shape,
+                        bool)
+    return (_uniform_np(ids, hops, plan.seed, _STREAM_CORRUPT, attempt)
+            < np.float32(plan.corrupt_rate))
+
+
+def read_attempt_bad_np(ids, hops, attempt: int,
+                        plan: FaultPlan) -> np.ndarray:
+    """NumPy twin of :func:`read_attempt_bad` (fail OR corrupt)."""
+    return read_fail_np(ids, hops, attempt, plan) | read_corrupt_np(
+        ids, hops, attempt, plan)
 
 
 # ---------------------------------------------------------------------------

@@ -111,6 +111,19 @@ def _verify_core(qf: QueryFilter, query, top_ids, vecs, rl, rv, k: int,
     return ids, dists, io, ok.sum()
 
 
+def _verify_fetched(qf: QueryFilter, query, top_ids, rec: dict,
+                    params: PrefilterParams, pages_std: int):
+    """Verification over records fetched outside the device tier (the disk
+    backend's ``fetch_host``: numpy fields, moved to ``query``'s device)."""
+    dev = query.device
+
+    def t(k):
+        return torch.from_numpy(rec[k]).to(dev)
+
+    return _verify_core(qf, query, top_ids, t("vectors"), t("rec_labels"),
+                        t("rec_values"), params.k, pages_std)
+
+
 def _rerank_verify(store: RecordStore, qf: QueryFilter, query, top_ids,
                    params: PrefilterParams):
     """Fetch top-(L+δ) records, exact distance + exact verification."""
@@ -123,12 +136,17 @@ def _rerank_verify(store: RecordStore, qf: QueryFilter, query, top_ids,
 def prefilter_search(store: RecordStore, codes, codebook, selectors, qfilters,
                      queries, params: PrefilterParams,
                      speculative: bool = True,
-                     distance_fn=None) -> PrefilterResult:
+                     distance_fn=None, host_fetch=None) -> PrefilterResult:
     """Host-driven pre-filtering for a query batch.
 
     ``speculative=True`` uses Selector.pre_filter_approx (partial scans,
     heavy-branch pruning); ``False`` forces exact full-constraint scans
-    (the strict baseline)."""
+    (the strict baseline).
+
+    ``host_fetch`` (disk backend: ``DiskRecordStore.fetch_host``) replaces
+    the record gather of the re-rank: the top-(L+δ) records are read from
+    the slab files through the page cache — same fields, same
+    verification, the same output."""
     search.check_distance_fn(distance_fn)
     dev = codes.device
     B = len(selectors)
@@ -148,8 +166,15 @@ def prefilter_search(store: RecordStore, codes, codebook, selectors, qfilters,
         top_ids, _ = _pq_topl(codes, codebook, queries[b],
                               torch.from_numpy(cand).to(dev),
                               params.l_rerank)
-        ids, dists, io, nv = _rerank_verify(store, qf, queries[b], top_ids,
-                                            params)
+        if host_fetch is None:
+            ids, dists, io, nv = _rerank_verify(store, qf, queries[b],
+                                                top_ids, params)
+        else:
+            tid = top_ids.cpu().numpy()
+            ids, dists, io, nv = _verify_fetched(
+                qf, queries[b], top_ids, host_fetch(np.where(tid >= 0, tid,
+                                                             0)),
+                params, store.pages_std)
         out_ids.append(ids)
         out_d.append(dists)
         ios.append(io)

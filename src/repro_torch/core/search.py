@@ -35,8 +35,10 @@ through stable sorts, as ``jax.lax.top_k`` and ``jnp.argsort`` break them,
 so the port follows the JAX package's trajectory query for query.
 
 Execution: :func:`run_hops` advances a batch ``n_hops`` hops with no host
-synchronisation inside (rows that settled are exact fixed points of the hop
-step, so running a whole chunk changes nothing for them);
+synchronisation inside on the device backend (rows that settled are exact
+fixed points of the hop step, so running a whole chunk changes nothing for
+them); every driver takes a ``fetch_fn``, the disk tier's included
+(``storage/disk.py``: one host copy of the ids a hop);
 :func:`filtered_search_pipelined` reads the active mask back one chunk late
 (a non-blocking copy into pinned memory behind a CUDA event) and compacts
 surviving queries into power-of-two buckets — bit-identical to the
@@ -292,11 +294,13 @@ def _init(store, codes, codebook, mem, qf, queries, entry, params, entries):
     return QueryCtx(queries, tables, qf, merged_tbl), st
 
 
-def _hop_step(store, codes, mem, params, ctx, mc, st, rec) -> HopState:
+def _hop_step(store, codes, mem, params, ctx, mc, st, rec,
+              fetch_fn=local_fetch) -> HopState:
     """Consume the in-flight record slab for one hop, merge, and select the
     next frontier (the step numbering follows ``repro``'s ``_hop_step``).
     ``st`` is consumed: its ``visited`` words are updated in place and
-    returned in the new state (see :class:`HopState`)."""
+    returned in the new state (see :class:`HopState`). ``fetch_fn`` reads
+    the strict_in neighbours' attributes (see :func:`run_hops`)."""
     p = params
     l_valid = p.l_valid or p.l_search
     P, W = p.l_search, p.beam_width
@@ -405,7 +409,18 @@ def _hop_step(store, codes, mem, params, ctx, mc, st, rec) -> HopState:
         ok = ok_approx & fresh
         approx_c = counters[:, 2] + live.sum(1, dtype=torch.int32)
     else:  # strict_in: read every fresh neighbor's attributes from "SSD"
-        nrec = local_fetch(store, safe_cand.reshape(-1))
+        if getattr(fetch_fn, "wants_ctx", False):
+            # disk tier: the device-resident bloom/bucket words gate the
+            # attribute reads BEFORE any page is read (the paper's saved
+            # I/O). The gate is a no-false-negative superset, so a gated-out
+            # row's poisoned attributes (labels -1, values NaN) fail exact
+            # membership exactly where its real attributes would
+            gate = is_member_approx(qf, safe_cand, mem)
+            nrec = fetch_fn(store, safe_cand.reshape(-1),
+                            need=fresh.reshape(-1), gate=gate.reshape(-1),
+                            attrs_only=True)
+        else:
+            nrec = fetch_fn(store, safe_cand.reshape(-1))
         n_rl = nrec["rec_labels"].reshape(B, W * C, -1)
         n_rv = nrec["rec_values"].reshape(B, W * C, store.n_fields)
         ok = is_member(qf, n_rl, n_rv) & fresh
@@ -471,9 +486,21 @@ def _hop_step(store, codes, mem, params, ctx, mc, st, rec) -> HopState:
                     cur_live)
 
 
-def _issue(store: RecordStore, st: HopState) -> dict:
-    return local_fetch(store, torch.where(st.cur_live, st.cur_ids,
-                                          0).reshape(-1))
+def _issue(store: RecordStore, st: HopState, params: SearchParams,
+           fetch_fn=local_fetch) -> dict:
+    """Fetch the frontier's records. A ``fetch_fn`` marked ``wants_ctx``
+    (the disk tier's, ``storage/disk.py``) also receives each row's hop
+    counter as it stands at issue (its fault draws key on the same
+    (id, hop) pairs as the hop step's ladder), the rows' liveness (dead
+    rows read nothing) and the record flavour (dense in spec_in)."""
+    ids = torch.where(st.cur_live, st.cur_ids, 0).reshape(-1)
+    if getattr(fetch_fn, "wants_ctx", False):
+        return fetch_fn(store, ids,
+                        hops=st.counters[:, 3].repeat_interleave(
+                            params.beam_width),
+                        live=st.cur_live.reshape(-1),
+                        dense=params.mode == "spec_in")
+    return fetch_fn(store, ids)
 
 
 def _mc(mem: InMemory, ctx: QueryCtx, params: SearchParams):
@@ -485,18 +512,24 @@ def _mc(mem: InMemory, ctx: QueryCtx, params: SearchParams):
 
 
 def run_hops(store: RecordStore, codes, mem: InMemory, ctx: QueryCtx,
-             st: HopState, n_hops: int, params: SearchParams) -> HopState:
-    """Advance every query ``n_hops`` hops with no host synchronisation:
-    settled rows are exact fixed points of the hop step, so hopping them
-    changes nothing. Each hop consumes the slab fetched at the end of the
-    previous one (the cross-hop prefetch). ``st`` is consumed as by
-    :func:`_hop_step`: the returned state holds its ``visited`` tensor,
-    updated in place."""
+             st: HopState, n_hops: int, params: SearchParams,
+             fetch_fn=local_fetch) -> HopState:
+    """Advance every query ``n_hops`` hops: settled rows are exact fixed
+    points of the hop step, so hopping them changes nothing. Each hop
+    consumes the slab fetched at the end of the previous one (the cross-hop
+    prefetch). ``st`` is consumed as by :func:`_hop_step`: the returned
+    state holds its ``visited`` tensor, updated in place.
+
+    ``fetch_fn`` reads records: :func:`local_fetch` (the device backend)
+    gathers them from ``store`` with no host synchronisation; the disk
+    tier's callable (``storage/disk.py``) copies each hop's ids to the host
+    to read their pages, and in strict_in the gated attribute reads too."""
     mc = _mc(mem, ctx, params)
-    rec = _issue(store, st)
+    rec = _issue(store, st, params, fetch_fn)
     for _ in range(n_hops):
-        st = _hop_step(store, codes, mem, params, ctx, mc, st, rec)
-        rec = _issue(store, st)
+        st = _hop_step(store, codes, mem, params, ctx, mc, st, rec,
+                       fetch_fn)
+        rec = _issue(store, st, params, fetch_fn)
     return st
 
 
@@ -550,19 +583,20 @@ def finalize_search(st: HopState, params: SearchParams) -> SearchResult:
 def filtered_search(store: RecordStore, codes, codebook, mem: InMemory,
                     qfilters: QueryFilter, queries, entry: int,
                     params: SearchParams, entries=None,
-                    distance_fn=None) -> SearchResult:
+                    distance_fn=None, fetch_fn=local_fetch) -> SearchResult:
     """Single-shot search: every query hops until the whole batch settles
     (the oracle of the pipelined driver's compaction)."""
     check_distance_fn(distance_fn)
     ctx, st = init_search(store, codes, codebook, mem, qfilters, queries,
                           entry, params, entries)
     mc = _mc(mem, ctx, params)
-    rec = _issue(store, st)
+    rec = _issue(store, st, params, fetch_fn)
     for _ in range(params.max_hops):
         if not bool(st.active.any()):
             break
-        st = _hop_step(store, codes, mem, params, ctx, mc, st, rec)
-        rec = _issue(store, st)
+        st = _hop_step(store, codes, mem, params, ctx, mc, st, rec,
+                       fetch_fn)
+        rec = _issue(store, st, params, fetch_fn)
     return _finalize(st, params)
 
 
@@ -598,7 +632,7 @@ def filtered_search_pipelined(store: RecordStore, codes, codebook,
                               hop_chunk: int = DEFAULT_HOP_CHUNK,
                               min_bucket: int = MIN_COMPACT_BUCKET,
                               async_readback: bool = True,
-                              distance_fn=None):
+                              distance_fn=None, fetch_fn=local_fetch):
     """Bucketed host driver: chunked hops + straggler compaction.
 
     Runs :func:`run_hops` ``hop_chunk`` hops at a time; after every chunk
@@ -612,11 +646,13 @@ def filtered_search_pipelined(store: RecordStore, codes, codebook,
     the previous chunk's active mask, so decisions run one chunk late on a
     stale mask — a superset of the truly active rows, and inactive rows are
     exact fixed points. ``hop_chunk=0`` runs the single-shot search.
+    ``fetch_fn`` is :func:`run_hops`'s.
     """
     check_distance_fn(distance_fn)
     if hop_chunk <= 0:
         return filtered_search(store, codes, codebook, mem, qfilters,
-                               queries, entry, params, entries=entries)
+                               queries, entry, params, entries=entries,
+                               fetch_fn=fetch_fn)
     queries = np.asarray(queries, np.float32)
     orig_b = int(queries.shape[0])
     B = max(min_bucket, _pow2_at_least(orig_b))
@@ -643,7 +679,8 @@ def filtered_search_pipelined(store: RecordStore, codes, codebook,
     width = B
 
     def hop(ctx, st):
-        st = run_hops(store, codes, mem, ctx, st, hop_chunk, params)
+        st = run_hops(store, codes, mem, ctx, st, hop_chunk, params,
+                      fetch_fn)
         return st, _MaskReader(st.active)
 
     act = _MaskReader(work_st.active).read()

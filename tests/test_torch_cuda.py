@@ -395,3 +395,62 @@ def test_cuda_wrappers_count_and_check(cuda):
                           torch.zeros(5, dtype=torch.uint8, device=cuda),
                           torch.zeros(9, dtype=torch.int32, device=cuda),
                           torch.zeros(8, dtype=torch.int32, device=cuda))
+
+
+def test_disk_backend_equals_device_backend_on_card(cuda, tmp_path):
+    """The disk tier on the card (tests/test_torch_storage.py's corpus and
+    config): ``Index.build(store="disk")``'s answers equal those of the same
+    index on the device backend under every policy (the pre route and the
+    scan rung included), clean and under a fault plan, and its hop loop
+    launches the same kernels through the same entries."""
+    import copy
+    import dataclasses
+    from repro_torch import api as tapi
+    from repro_torch.core.faults import FaultPlan
+
+    rng = np.random.default_rng(7)
+    vectors = rng.normal(0, 1, (600, 24)).astype(np.float32)
+    metadata = [{"cat": sorted(set(int(x) for x in
+                               rng.integers(0, 8, rng.integers(1, 4)))),
+                 "value": float(v)}
+                for v in rng.uniform(0, 100, 600)]
+    cfg = tapi.IndexConfig(r=12, r_dense=60, l_build=24, pq_m=8)
+    defaults = tapi.SearchConfig(k=5, l=16, max_hops=60)
+    idx = tapi.Index.build(vectors, metadata, cfg, defaults=defaults,
+                           device=cuda)
+    dsk = copy.copy(idx)
+    dsk.engine = copy.copy(idx.engine)
+    dsk.engine.to_disk(str(tmp_path / "slabs"))
+    assert dsk.engine.store.vectors.device.type == cuda.type
+    tag, num = tapi.Tag("cat"), tapi.Num("value")
+    reqs = [tapi.SearchRequest(query=vectors[i] + 0.01,
+                               filter=(tag == 2, num < 50.0,
+                                       (tag == 2) | (num < 60.0))[i % 3],
+                               policy=pol)
+            for i in range(6)
+            for pol in ("strict_in", "post", "speculative", "strict_pre")]
+    plan = FaultPlan(read_fail_rate=0.08, corrupt_rate=0.04, seed=11)
+    for scfgs in (None, [dataclasses.replace(defaults, policy=r.policy,
+                                             fault_plan=plan)
+                         for r in reqs]):
+        for run in ("search_batch", "approx_scan_batch"):
+            tops.reset_launches()
+            want, sw = getattr(idx, run)(reqs, with_stats=True,
+                                         with_metadata=False, scfgs=scfgs)
+            device_launches = tops.snapshot()
+            tops.reset_launches()
+            got, sg = getattr(dsk, run)(reqs, with_stats=True,
+                                        with_metadata=False, scfgs=scfgs)
+            assert tops.snapshot() == device_launches, run
+            assert sg.mechanism == sw.mechanism
+            for f in ("io_pages", "hops", "dist_comps", "n_valid",
+                      "explored", "fp_explored", "faults", "retries",
+                      "degraded"):
+                np.testing.assert_array_equal(getattr(sg, f),
+                                              getattr(sw, f), err_msg=f)
+            for a, b in zip(want, got):
+                np.testing.assert_array_equal(a.ids, b.ids)
+                np.testing.assert_array_equal(a.dists, b.dists)
+            assert sg.disk["records_fetched"] > 0
+            if run == "search_batch":
+                assert {"pre", "in", "post"} <= set(sg.mechanism)

@@ -221,35 +221,69 @@ def test_results_valid_and_recall(shared_ds, port):
     assert np.mean(rec) >= 0.9, np.mean(rec)
 
 
-def test_out_of_scope_paths_raise(port, tmp_path):
-    """The disk tier (ROADMAP item 6), sharding (7) and a custom distance
-    function (8) raise, naming their item; checkpoints, inserts and fault
-    plans are ported and covered by tests/test_torch_lifecycle.py and the
-    fault-ladder tests below."""
-    import json
+def _same_search(a, b, sels, ds, tag):
+    """``engine.search`` of two port engines on the same batch: routes, ids,
+    distances and integer counters equal."""
+    scfg = teng.SearchConfig(k=10, l=32, max_hops=200)
+    q = ds.queries[:len(sels)]
+    ia, da, sa = a.search(q, sels, scfg)
+    ib, db, sb = b.search(q, sels, scfg)
+    assert sa.mechanism == sb.mechanism, tag
+    np.testing.assert_array_equal(ia, ib, err_msg=tag)
+    np.testing.assert_array_equal(da, db, err_msg=tag)
+    for f in ("io_pages", "hops", "dist_comps", "n_valid", "explored",
+              "fp_explored"):
+        np.testing.assert_array_equal(getattr(sa, f), getattr(sb, f),
+                                      err_msg=f"{tag}: {f}")
+    return sb
+
+
+def test_out_of_scope_paths_raise(port, shared_engine, shared_ds, tmp_path):
+    """Sharding (ROADMAP item 7) and a custom distance function (8) raise,
+    naming their item, and sharding a disk-backend engine or index raises
+    ``repro``'s ValueError. The disk tier (item 6) is ported
+    (tests/test_torch_storage.py): here ``to_disk`` and
+    ``attach_disk_store`` work on the CPU on the shared engine's copies, and
+    a checkpoint of the JAX package's disk backend loads in the port; all
+    three answer as the device backend does."""
+    import copy
+    from repro import api as japi
     from repro_torch import api as tapi
-    with pytest.raises(NotImplementedError, match="item 6"):
-        port.to_disk("x")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        port.attach_disk_store(None)
+    from repro_torch.storage import DiskRecordStore
     with pytest.raises(NotImplementedError, match="item 7"):
         port.shard(2)
     with pytest.raises(NotImplementedError, match="item 8"):
         tsearch.check_distance_fn(lambda c, t: None)
     vecs = np.zeros((4, 8), np.float32)
     meta = [{"cat": 1}] * 4
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tapi.Index.build(vecs, meta, store="disk", device="cpu")
+    with pytest.raises(ValueError, match="device backend"):
+        tapi.Index.build(vecs, meta, store="disk", shards=2, device="cpu")
     with pytest.raises(NotImplementedError, match="item 7"):
         tapi.Index.build(vecs, meta, shards=2, device="cpu")
     with pytest.raises(NotImplementedError, match="item 7"):
         tapi.Index.load(str(tmp_path / "idx"), shards=2)
+
+    sels = t_make_selectors(shared_ds, port, "label")[:8]
+    spilled = copy.copy(port).to_disk(str(tmp_path / "slabs"))
+    assert spilled.disk_store.n == port.n and spilled.store.n == 1
+    st = _same_search(port, spilled, sels, shared_ds, "to_disk")
+    assert st.disk["records_fetched"] > 0
+    with pytest.raises(ValueError, match="device backend"):
+        spilled.shard(2)
+    attached = copy.copy(port)
+    attached.attach_disk_store(DiskRecordStore(str(tmp_path / "slabs")))
+    _same_search(port, attached, sels, shared_ds, "attach_disk_store")
+
     # a checkpoint of the JAX package's disk backend
-    step = tmp_path / "disk" / "step_0"
-    step.mkdir(parents=True)
-    (step / "index_meta.json").write_text(json.dumps({"backend": "disk"}))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tapi.Index.load(str(tmp_path / "disk"), device="cpu")
+    je = copy.copy(shared_engine)
+    je.to_disk(str(tmp_path / "jslabs"))
+    vocab = {("label", i): i for i in range(shared_ds.n_labels)}
+    jidx = japi.Index(je, vocab, japi.Schema(tags=("label",),
+                                             nums=("value",)))
+    jidx.save(str(tmp_path / "jdisk"))
+    loaded = tapi.Index.load(str(tmp_path / "jdisk"), device="cpu")
+    assert loaded.engine.disk_store is not None and len(loaded) == port.n
+    _same_search(port, loaded.engine, sels, shared_ds, "repro disk ckpt")
 
 
 # ---------------------------------------------------------------------------
