@@ -90,6 +90,21 @@ Phases, each printing one JSON line:
    ``posix_fadvise(DONTNEED)`` dropped the file from the OS page cache
    (the fall in ``/proc/meminfo``'s ``Cached`` printed beside it). The
    slabs are deleted after.
+9. oracles — run after phase 6, on the engine as phase 4 built it (phase
+   7's inserts grow the stores past 2**20 rows, where the visited set
+   hashes): ``filtered_search`` against the naive oracle
+   ``filtered_search_ref`` under post, spec_in and strict_in on the label
+   batch and a 30% range batch (io_pages, explored, hops and n_valid equal
+   per query, recall@10 within 0.01; seconds of each side and PyTorch
+   calls per hop of each); ``distance_fn=ops.pq_scan`` through the
+   compacting driver and through the oracle, each equal on every field to
+   its default-distance run (``pq_scan`` launches per hop step); the
+   pre-fused ``filtered_search_legacy`` against the compacting driver
+   under post and spec_in (ms per batch, recall@10, exact membership of
+   every id); ``collect_trace=True`` (equal to the untraced run, the trace
+   printed); and the sequential reference builder beside the batched one
+   on BENCH_build.json's corpus (n=12,000, d=48; seconds, greedy
+   recall@10, batched ≥ reference − 0.01).
 
 Phase 2 also covers approx_probe and l2_rerank (the latter against its
 plain version within rtol=1e-5, atol=1e-5·max(|v|²+|q|²), and with
@@ -98,8 +113,8 @@ also inserts the same batch on the card and on the CPU copy, runs the
 fault plan on both and saves on the card to load on the CPU.
 
 Then a ``kernels`` line (launches of hop_fused, or_scatter and prune_scan
-from phase 4 (each row also lists its launches in every phase, phase 8's
-included, and the line its ``hop_fused_gather``, ``or_scatter_`` and
+from phase 4 (each row also lists its launches in every phase, phases 8's
+and 9's included, and the line its ``hop_fused_gather``, ``or_scatter_`` and
 ``pq_scan_gather`` calls in phase 8), of pq_scan from phase 5, of approx_probe and l2_rerank from
 phase 6; times from phase 2: hop_fused's of the gathered entry with the slab
 entry's beside it, or_scatter's of the in-place entry with the fresh-table
@@ -133,13 +148,15 @@ FULL_N = 1_000_000
 MIN_N = 250_000
 TIME_LIMIT_S = 1200.0           # the smoke's limit, kernel builds included
 MARGIN_S = 150.0
-# seconds of the full-size, serving, ops, lifecycle and disk phases per
-# corpus row, scaled linearly: at N=1M on an NVIDIA H100 80GB HBM3 at 700 W
-# the full-size phase took 217-394 s and the serving phase 29-56 s; the ops
-# and lifecycle phases add ~50-150 s and the disk phase ~55 s (its 8.3 GB
-# of slabs, written in ~10 s); host time varies by up to 40% between
+# seconds of the full-size, serving, ops, lifecycle, disk and oracle phases
+# per corpus row, scaled linearly: at N=1M on an NVIDIA H100 80GB HBM3 at
+# 700 W the full-size phase took 217-394 s, the serving phase 29-56 s, the
+# ops and lifecycle phases ~50-150 s and the disk phase ~55 s (its 8.3 GB
+# of slabs, written in ~10 s): ~560 s at most, the whole smoke 416-540 s
+# with its ~85 s of kernel and card-vs-CPU phases; the oracle phase adds
+# up to ~250 s (PERF.md §6, PR 18); host time varies by up to 40% between
 # machines
-FULL_S_PER_ROW = 850.0 / 1_000_000
+FULL_S_PER_ROW = 900.0 / 1_000_000
 
 
 def emit(obj: dict) -> None:
@@ -1599,6 +1616,253 @@ def disk_phase(index, ds, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the oracles on the full-size engine
+# ---------------------------------------------------------------------------
+
+ORACLE_MODES = ("post", "spec_in", "strict_in")
+# the batch's search parameters in every phase-9 run (W = 1, as the engine)
+ORACLE_PARAMS = dict(l_search=64, k=10, max_hops=256, l_valid=32)
+# BENCH_build.json's corpus and parameters (benchmarks/bench_build.py)
+BUILD_BENCH = dict(n=12_000, d=48, n_queries=32, r=24, ell=48, alpha=1.2)
+
+
+def _oracle_batch(e, ds, sels, mode: str):
+    """The arguments of every search driver for one selector batch in
+    ``mode``, and its strict_in entry seeds (None in the other modes)."""
+    import numpy as np
+    from repro_torch.core import engine as eng
+    from repro_torch.core import search
+    from repro_torch.core.selectors import stack_filters
+
+    cfg = e.config
+    qf = stack_filters([s.plan(cfg.ql, cfg.cap, cfg.qr).qfilter
+                        for s in sels])
+    ents = None
+    if mode == "strict_in":
+        ents = np.full((len(sels), 4), -1, np.int32)
+        for j, s in enumerate(sels):
+            seeds, _ = eng._strict_seed_ids(s, e.medoid, 4)
+            ents[j, :seeds.size] = seeds
+    sp = search.SearchParams(mode=mode, **ORACLE_PARAMS)
+    return (e.store, e.codes, e.codebook, e.mem, qf, ds.queries, e.medoid,
+            sp), ents
+
+
+def _synced(fn, dev):
+    """``(fn(), seconds)``, the host clock around a synchronised call."""
+    import torch
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize(dev)
+    return res, time.perf_counter() - t0
+
+
+def _recall10(e, ds, sels, ids) -> float:
+    """Mean recall@10 of ``ids`` (B, 10) against brute force on the card."""
+    import numpy as np
+    from repro_torch.core import engine as eng
+    cfg, s = e.config, e.store
+    ids = ids.cpu().numpy()
+    rec = []
+    for i, sel in enumerate(sels):
+        qf = sel.plan(cfg.ql, cfg.cap, cfg.qr).qfilter
+        gt = eng.brute_force_filtered(s.vectors, s.rec_labels, s.rec_values,
+                                      qf, ds.queries[i], 10)
+        rec.append(eng.recall_at_k(ids[i], gt, 10))
+    return float(np.mean(rec))
+
+
+def _same_fields(label, got, want) -> None:
+    """Every SearchResult field equal, floats bit for bit."""
+    import torch
+    for f in got._fields:
+        a, b = getattr(got, f), getattr(want, f)
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), f"{label}: {f} differs"
+
+
+def _hop_ops(e, args, ents) -> tuple[int, int]:
+    """PyTorch operator calls in one hop (:func:`torch_ops`) of the
+    oracle (its loop condition and body) and of the fused hop step (the
+    step and the next frontier's fetch), both from the seeded state."""
+    from repro_torch.core import search
+    store, codes, codebook, mem, qf, queries, entry, sp = args
+    ctx, st = search._naive_init(codes, codebook, mem, qf, queries, entry,
+                                 sp, ents, None, False)
+    oracle = torch_ops(lambda: search._naive_hop(
+        store, codes, mem, sp, ctx, st, search._naive_running(st, sp), None,
+        search.local_fetch, False))
+    fctx, fst = search.init_search(*args, entries=ents)
+    mc = search._mc(mem, fctx, sp)
+    rec = search._issue(store, fst, sp)
+    fused = torch_ops(lambda: search._issue(store, search._hop_step(
+        store, codes, mem, sp, fctx, mc, fst, rec), sp))
+    return oracle, fused
+
+
+def oracle_phase(e, ds, dev, reachable: float) -> dict:
+    """Phase 9 on the full-size engine (N = 1,000,000, device backend,
+    before phase 7's inserts: the visited set is exact below 2**20 ids).
+    Runs, each printing one line: ``oracle_parity`` (``filtered_search``
+    against ``filtered_search_ref`` in post, spec_in and strict_in on the
+    label batch and a 30% range batch: io_pages, explored, hops and
+    n_valid equal per query, mean recall@10 within 0.01), ``distance_fn``
+    (the spec_in label batch with ``distance_fn=ops.pq_scan`` through the
+    compacting driver and through the oracle, each equal on every field to
+    its default-distance run, ``pq_scan`` launched), ``legacy``
+    (``filtered_search_legacy`` against the compacting driver under post
+    and spec_in: ms per batch, recall@10, every id passes exact
+    membership), ``active_trace`` (``collect_trace=True``, equal to the
+    untraced run) and ``reference_build`` (both builders on
+    BENCH_build.json's corpus: seconds, greedy recall@10, batched ≥
+    reference − 0.01). Launch counts of the phase are returned under
+    ``launches``."""
+    import numpy as np
+    import torch
+    from repro_torch.core import graph, search
+    from repro_torch.data.synth import (make_filtered_dataset,
+                                        make_selectors,
+                                        make_sliding_range_selectors)
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import visited_spec
+
+    n_ids = e.codes.shape[0]
+    assert visited_spec(n_ids)[0] >= n_ids, \
+        f"the visited set hashes at {n_ids} ids: the counters may differ"
+    nq = ds.queries.shape[0]
+    batches = {"label": make_selectors(ds, e, "label"),
+               "range30": make_sliding_range_selectors(e, 0.30, nq)}
+    out = {"n": int(n_ids), "parity": [], "reachable_from_medoid": reachable}
+    ops.reset_launches()
+    oracle_runs = {}
+    for bname, sels in batches.items():
+        for mode in ORACLE_MODES:
+            args, ents = _oracle_batch(e, ds, sels, mode)
+            fused, fused_s = _synced(
+                lambda: search.filtered_search(*args, entries=ents), dev)
+            ref, ref_s = _synced(
+                lambda: search.filtered_search_ref(*args, entries=ents), dev)
+            label = f"oracle_parity {bname}/{mode}"
+            for f in ("io_pages", "explored", "hops", "n_valid"):
+                bad = torch.nonzero(getattr(fused, f) != getattr(ref, f))
+                assert bad.numel() == 0, \
+                    f"{label}: {f} differs first at query {int(bad[0, 0])}"
+            assert int(ref.faults.sum() + ref.retries.sum()
+                       + ref.degraded.sum()) == 0
+            with uncounted():
+                r_f = _recall10(e, ds, sels, fused.ids)
+                r_r = _recall10(e, ds, sels, ref.ids)
+                oracle_ops, fused_ops = _hop_ops(e, args, ents)
+            assert abs(r_f - r_r) <= 0.01, f"{label}: recall {r_f} vs {r_r}"
+            line = {"run": f"{bname}/{mode}", "queries": nq,
+                    "fused_s": fused_s, "oracle_s": ref_s,
+                    "oracle_over_fused": ref_s / fused_s,
+                    "oracle_torch_ops_per_hop": oracle_ops,
+                    "fused_torch_ops_per_hop": fused_ops,
+                    "mean_hops": float(fused.hops.float().mean()),
+                    "max_hops": int(fused.hops.max()),
+                    "mean_io_pages": float(fused.io_pages.float().mean()),
+                    "recall_at_10_fused": r_f, "recall_at_10_oracle": r_r,
+                    "counters_equal": True,
+                    "reachable_from_medoid": reachable}
+            emit({"phase": "oracle_parity", **line})
+            out["parity"].append(line)
+            oracle_runs[(bname, mode)] = ref
+
+    # distance_fn: the spec_in label batch through pq_scan
+    sels = batches["label"]
+    args, _ = _oracle_batch(e, ds, sels, "spec_in")
+    default, default_s = _synced(
+        lambda: search.filtered_search_pipelined(*args), dev)
+    before = ops.snapshot()
+    with entry_calls("or_scatter_", "or_scatter_new", "pq_scan",
+                     "hop_fused_gather") as calls:
+        scanned, scan_s = _synced(lambda: search.filtered_search_pipelined(
+            *args, distance_fn=ops.pq_scan), dev)
+    after = ops.snapshot()
+    _same_fields("distance_fn=pq_scan vs default", scanned, default)
+    hop_steps = calls["or_scatter_"] - calls["or_scatter_new"]
+    pq_launches = after["pq_scan"] - before["pq_scan"]
+    assert pq_launches > 0 and calls["hop_fused_gather"] == 0
+    before = ops.snapshot()
+    ref_scan, ref_scan_s = _synced(lambda: search.filtered_search_ref(
+        *args, distance_fn=ops.pq_scan), dev)
+    ref_pq_launches = ops.snapshot()["pq_scan"] - before["pq_scan"]
+    _same_fields("oracle distance_fn=pq_scan vs oracle default", ref_scan,
+                 oracle_runs[("label", "spec_in")])
+    out["distance_fn"] = {
+        "run": "label/spec_in", "default_s": default_s, "pq_scan_s": scan_s,
+        "pq_scan_launches": pq_launches, "hop_steps": hop_steps,
+        "pq_scan_launches_per_hop_step": pq_launches / max(hop_steps, 1),
+        "mean_hops": float(scanned.hops.float().mean()),
+        "max_hops": int(scanned.hops.max()),
+        "oracle_pq_scan_s": ref_scan_s,
+        "oracle_pq_scan_launches": ref_pq_launches, "equal": True}
+    emit({"phase": "distance_fn", **out["distance_fn"]})
+
+    # legacy: the pre-fused baseline against the compacting driver
+    out["legacy"] = []
+    for mode in ("post", "spec_in"):
+        args, _ = _oracle_batch(e, ds, sels, mode)
+        row = {"run": f"label/{mode}"}
+        for name, fn in (("legacy", search.filtered_search_legacy),
+                         ("pipelined", search.filtered_search_pipelined)):
+            times = []
+            for _ in range(3):
+                res, secs = _synced(lambda: fn(*args), dev)
+                times.append(secs)
+            with uncounted():
+                row[f"{name}_verified_ids"] = _check_members(
+                    f"legacy phase {name}/{mode}", e, sels,
+                    list(res.ids.cpu().numpy()))
+                row[f"{name}_recall_at_10"] = _recall10(e, ds, sels,
+                                                        res.ids)
+            row[f"{name}_ms"] = float(np.median(times)) * 1e3
+            row[f"{name}_mean_hops"] = float(res.hops.float().mean())
+        row["legacy_over_pipelined"] = row["legacy_ms"] / row["pipelined_ms"]
+        emit({"phase": "legacy", **row})
+        out["legacy"].append(row)
+
+    # the compaction trace of the spec_in label batch
+    args, _ = _oracle_batch(e, ds, sels, "spec_in")
+    traced, trace = search.filtered_search_pipelined(*args,
+                                                     collect_trace=True)
+    _same_fields("collect_trace vs untraced", traced, default)
+    out["active_trace"] = trace
+    emit({"phase": "active_trace", "run": "label/spec_in", "trace": trace,
+          "equal": True})
+
+    # both builders on BENCH_build.json's corpus
+    b = BUILD_BENCH
+    bds = make_filtered_dataset(n=b["n"], d=b["d"], n_queries=b["n_queries"],
+                                seed=0)
+    built = {}
+    for name, fn in (("batched", graph.build_vamana_batched),
+                     ("reference", graph.build_vamana)):
+        (adj, med), secs = _synced(lambda: fn(
+            bds.vectors, b["r"], b["ell"], b["alpha"], seed=0, device=dev),
+            dev)
+        with uncounted():
+            rec = graph.greedy_recall_at_k(bds.vectors, adj, med,
+                                           bds.queries, ell=64, device=dev)
+        built[name] = {"seconds": secs, "recall_at_10": rec,
+                       "medoid": med, **graph.graph_stats(adj)}
+    assert built["batched"]["medoid"] == built["reference"]["medoid"]
+    assert built["batched"]["recall_at_10"] >= \
+        built["reference"]["recall_at_10"] - 0.01, built
+    out["reference_build"] = {
+        "corpus": {k: b[k] for k in ("n", "d", "r", "ell", "alpha")},
+        **built,
+        "reference_over_batched": built["reference"]["seconds"]
+        / built["batched"]["seconds"]}
+    emit({"phase": "reference_build", **out["reference_build"]})
+    out["launches"] = ops.snapshot()
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 KERNELS = {
     "hop_fused": ("hop_fused/gather",
@@ -1691,6 +1955,14 @@ def main(argv=None) -> int:
     opsr["seconds"] = time.perf_counter() - t0
     emit({"phase": "ops", **opsr})
 
+    # phase 9 runs here, on the engine as phase 4 built it: phase 7's
+    # inserts grow the stores past 2**20 rows, where the visited set hashes
+    t0 = time.perf_counter()
+    oracles = oracle_phase(e, ds, dev, full["reachable_from_medoid"])
+    oracles["seconds"] = time.perf_counter() - t0
+    emit({"phase": "oracles", "seconds": oracles["seconds"],
+          "launches": oracles["launches"]})
+
     t0 = time.perf_counter()
     life = lifecycle_phase(index, ds, dev)
     life["seconds"] = time.perf_counter() - t0
@@ -1703,7 +1975,8 @@ def main(argv=None) -> int:
                               if k not in ("runs", "cold")}})
 
     launches = {"full": full["launches"], "serve": serve["launches"],
-                "ops": opsr["launches"], "disk": disk["launches"]}
+                "ops": opsr["launches"], "disk": disk["launches"],
+                "oracles": oracles["launches"]}
     rows = []
     for name, (key, source, replaces) in KERNELS.items():
         count = launches[LAUNCH_PHASE[name]][name]
@@ -1730,6 +2003,9 @@ def main(argv=None) -> int:
           "full_phase_s": full["seconds"], "serve_phase_s": serve["seconds"],
           "ops_phase_s": opsr["seconds"], "lifecycle_phase_s": life["seconds"],
           "disk_phase_s": disk["seconds"],
+          "oracle_phase_s": oracles["seconds"],
+          "oracle_pq_scan_launches_per_hop_step":
+              oracles["distance_fn"]["pq_scan_launches_per_hop_step"],
           "disk_entry_calls": {k: disk["entry_calls"].get(k, 0)
                                for k in ("hop_fused_gather", "or_scatter_",
                                          "pq_scan_gather")},

@@ -421,9 +421,6 @@ class Index:
                 quantiles=t["rs_quantiles"][j])
             for j in range(t["rs_values"].shape[1])])
         config = dict(meta["config"])
-        # which builder made the graph: the port serves and inserts through
-        # the batched path whichever it was, as the JAX package does
-        config.pop("builder", None)
         arrays = {"codes": t["pq_codes"], "centroids": t["pq_centroids"],
                   "medoid": meta["medoid"], "blooms": label_store.blooms,
                   "bucket_codes": range_store.bucket_codes}

@@ -57,6 +57,9 @@ class IndexConfig:
     qr: int = 4               # range-predicate slots per query (NR)
     cap: int = 2048           # merged rare-list capacity
     seed: int = 0
+    builder: str = "batched"  # 'batched' (the device pipeline) |
+                              # 'reference' (graph.build_vamana, the
+                              # sequential numpy oracle)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -204,9 +207,18 @@ class FilteredANNEngine:
         graph.sync(dev)
         times["pq_s"] = time.perf_counter() - t0
 
-        adj, medoid = graph.build_vamana_batched(
-            vectors, config.r, config.l_build, config.alpha,
-            seed=config.seed, device=dev, timings=times)
+        if config.builder == "batched":
+            adj, medoid = graph.build_vamana_batched(
+                vectors, config.r, config.l_build, config.alpha,
+                seed=config.seed, device=dev, timings=times)
+        elif config.builder == "reference":
+            t0 = time.perf_counter()
+            adj, medoid = graph.build_vamana(vectors, config.r,
+                                             config.l_build, config.alpha,
+                                             seed=config.seed, device=dev)
+            times["reference_s"] = time.perf_counter() - t0
+        else:
+            raise ValueError(f"unknown builder {config.builder!r}")
         t0 = time.perf_counter()
         dense = graph.densify_2hop(adj, config.r_dense, seed=config.seed + 1)
         times["densify_s"] = time.perf_counter() - t0
@@ -402,8 +414,10 @@ class FilteredANNEngine:
         stream forces a quantile refresh, which re-codes every row. The PQ
         codebook is not retrained: new vectors are encoded against the
         build-time centroids. Holders of a stale ``engine.store`` or
-        ``engine.mem`` must re-read them after an insert. The disk backend
-        refuses inserts, as ``repro``'s does."""
+        ``engine.mem`` must re-read them after an insert. Inserts link
+        through the batched pipeline whatever ``config.builder`` is, so a
+        ``builder='reference'`` graph is mixed after the first insert. The
+        disk backend refuses inserts, as ``repro``'s does."""
         cfg = self.config
         if self.disk_store is not None:
             raise NotImplementedError(

@@ -1,8 +1,10 @@
 """Vamana graph construction (paper §5.1) + ACORN-style 2-hop densification
 (paper §4.1).
 
-Counterpart of the batched builder of ``repro.core.graph``. An insertion
-batch of B nodes is processed as one set of tensor operations:
+Counterpart of ``repro.core.graph``: its sequential numpy reference build
+(:func:`build_vamana`, the correctness oracle, navigating with
+:func:`greedy_search`) and its batched builder. An insertion batch of B
+nodes is processed by the batched builder as one set of tensor operations:
 
 1. **Navigation** (:func:`greedy_search_beam`): a beam search from the
    medoid for every node of the batch at once, each row stopping on its own
@@ -32,6 +34,7 @@ import torch
 from repro_torch.core.pq import no_tf32
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import sq_dist_fma
 
 _INT_MAX = int(np.iinfo(np.int32).max)
 STOP_CHECK = 8        # hops between the navigator's all-rows-stopped checks
@@ -48,10 +51,52 @@ def _sqd(data: torch.Tensor, ids: torch.Tensor, q: torch.Tensor):
 
 def greedy_search(data, adj, entry: int, queries, ell: int, max_hops: int):
     """Best-first search with a size-``ell`` pool and exact distances, one
-    node explored per step. data (N, D); adj (N', R) int32 (-1 pad; extra
-    scratch rows are unreachable); queries (B, D). Returns (pool_ids,
-    pool_dists), each (B, ell) ascending."""
-    return _beam_pool(data, adj, entry, queries, ell, max_hops, width=1)
+    node explored per step: ``repro``'s ``greedy_search`` with the query
+    batch as the leading dimension. data (N, D); adj (N', R) int32 (-1 pad;
+    extra scratch rows are unreachable); queries (B, D). Returns (pool_ids,
+    pool_dists), each (B, ell) ascending.
+
+    As in ``repro``, the explored node's neighbours are deduplicated
+    against the pool only (a neighbour listed twice enters twice), a
+    duplicate keeps its id with an infinite distance, and the merge is one
+    stable sort. Distances are ``kernels.ref.sq_dist_fma``'s chain, which
+    is XLA-CPU's sum over rows of up to 32 floats, so at such widths the
+    pools equal ``repro``'s; a row whose pool has no finite unexplored
+    entry stops (keeps its state) while the others go on."""
+    B = queries.shape[0]
+    dev = queries.device
+    inf = float("inf")
+    pool_ids = torch.full((B, ell), -1, dtype=torch.int32, device=dev)
+    pool_ids[:, 0] = int(entry)
+    pool_d = torch.full((B, ell), inf, device=dev)
+    pool_d[:, 0] = sq_dist_fma(data[int(entry)][None, :], queries)
+    explored = torch.zeros((B, ell), dtype=torch.bool, device=dev)
+    for hop in range(max_hops):
+        run = (~explored & torch.isfinite(pool_d)).any(1)      # (B,)
+        if hop % STOP_CHECK == 0 and not bool(run.any()):
+            break
+        masked = torch.where(explored, inf, pool_d)
+        i = torch.argmin(masked, dim=1, keepdim=True)          # first min
+        exp_new = explored.scatter(1, i, torch.ones_like(i, dtype=torch.bool))
+        cur = torch.gather(pool_ids, 1, i)
+        nbrs = adj[torch.where(cur >= 0, cur, 0).long()[:, 0]]  # (B, R)
+        valid = nbrs >= 0
+        nv = torch.where(valid, nbrs, 0).long()
+        nd = torch.where(valid, sq_dist_fma(data[nv], queries[:, None, :]),
+                         inf)
+        dup = (nbrs[:, :, None] == pool_ids[:, None, :]).any(2)
+        nd = torch.where(dup, inf, nd)
+        srt, order = torch.sort(torch.cat([pool_d, nd], 1), dim=1,
+                                stable=True)
+        order = order[:, :ell]
+        keep = run[:, None]
+        pool_ids = torch.where(keep, torch.gather(
+            torch.cat([pool_ids, nbrs], 1), 1, order), pool_ids)
+        pool_d = torch.where(keep, srt[:, :ell], pool_d)
+        explored = torch.where(keep, torch.gather(
+            torch.cat([exp_new, torch.zeros_like(valid)], 1), 1, order),
+            explored)
+    return pool_ids, pool_d
 
 
 def greedy_search_beam(data, adj, entry: int, queries, ell: int,
@@ -109,6 +154,94 @@ def _beam_pool(data, adj, entry, queries, ell, max_hops, width):
         pool_d = torch.where(keep, srt[:, :ell], pool_d)
         explored = torch.where(keep, new_exp, explored)
     return pool_ids, pool_d
+
+
+# ---------------------------------------------------------------------------
+# The sequential reference builder (numpy RobustPrune, squared distances ->
+# alpha^2 domination): ``repro``'s correctness oracle of the batched build
+# ---------------------------------------------------------------------------
+
+def robust_prune(p_vec: np.ndarray, cand_ids: np.ndarray,
+                 cand_vecs: np.ndarray, r: int, alpha: float) -> np.ndarray:
+    """Vamana RobustPrune: keep ≤ r diverse candidates (numpy)."""
+    if cand_ids.size == 0:
+        return cand_ids
+    d_p = np.sum((cand_vecs - p_vec[None, :]) ** 2, axis=1)
+    order = np.argsort(d_p, kind="stable")
+    a2 = alpha * alpha
+    pruned = np.zeros(cand_ids.size, dtype=bool)
+    keep: list[int] = []
+    for idx in order:
+        if pruned[idx]:
+            continue
+        keep.append(idx)
+        if len(keep) >= r:
+            break
+        d_kc = np.sum((cand_vecs - cand_vecs[idx][None, :]) ** 2, axis=1)
+        pruned |= a2 * d_kc <= d_p
+        pruned[idx] = True
+    return cand_ids[np.array(keep, dtype=np.int64)]
+
+
+def build_vamana(data: np.ndarray, r: int = 32, ell: int = 64,
+                 alpha: float = 1.2, batch: int = 1024, seed: int = 0,
+                 device=None) -> tuple[np.ndarray, int]:
+    """Sequential reference build. Returns (adjacency (N, r) int32,
+    medoid).
+
+    Robust pruning and reverse-edge insertion run in numpy Python loops,
+    node by node; each batch of ``batch`` nodes is navigated at once by
+    :func:`greedy_search` on ``device`` (the card unless the caller asks
+    for the CPU) over the adjacency as it stood at the batch's start. Use
+    :func:`build_vamana_batched` for the fast path."""
+    device = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    data = np.asarray(data, dtype=np.float32)
+    n = data.shape[0]
+    medoid = int(np.argmin(np.sum((data - data.mean(0, keepdims=True)) ** 2,
+                                  1)))
+
+    # random initial graph
+    adj = rng.integers(0, n, size=(n, r), dtype=np.int64).astype(np.int32)
+    adj[adj == np.arange(n, dtype=np.int32)[:, None]] = medoid
+
+    data_dev = torch.from_numpy(data).to(device)
+
+    for alpha_pass in (1.0, alpha):
+        order = rng.permutation(n)
+        for start in range(0, n, batch):
+            ids = order[start:start + batch]
+            adj_dev = torch.from_numpy(adj).to(device)
+            pool_ids, _ = greedy_search(
+                data_dev, adj_dev, medoid,
+                data_dev[torch.from_numpy(ids).to(device)], ell,
+                max_hops=ell)
+            pool_ids = pool_ids.cpu().numpy()
+            for k, p in enumerate(ids):
+                cands = np.concatenate([pool_ids[k], adj[p]])
+                cands = np.unique(cands[(cands >= 0) & (cands != p)])
+                kept = robust_prune(data[p], cands, data[cands], r,
+                                    alpha_pass)
+                row = np.full(r, -1, np.int32)
+                row[:kept.size] = kept
+                adj[p] = row
+                # reverse edges
+                for q in kept:
+                    qrow = adj[q]
+                    if p in qrow:
+                        continue
+                    slot = np.where(qrow < 0)[0]
+                    if slot.size:
+                        adj[q, slot[0]] = p
+                    else:
+                        rc = np.unique(np.concatenate([qrow, [p]]))
+                        rc = rc[(rc >= 0) & (rc != q)]
+                        kept_q = robust_prune(data[q], rc, data[rc], r,
+                                              alpha_pass)
+                        qnew = np.full(r, -1, np.int32)
+                        qnew[:kept_q.size] = kept_q
+                        adj[q] = qnew
+    return adj, medoid
 
 
 # ---------------------------------------------------------------------------
@@ -416,7 +549,27 @@ class IncrementalBuilder:
             [adj, torch.full((1, self.r), -1, dtype=torch.int32,
                              device=self.device)])
 
+    @classmethod
+    def build(cls, data: np.ndarray, r: int = 32, ell: int = 64,
+              alpha: float = 1.2, batch: int = 1024, seed: int = 0,
+              device=None) -> "IncrementalBuilder":
+        """A builder over the batched build of ``data`` on ``device``."""
+        adj, medoid = build_vamana_batched(data, r, ell, alpha, batch, seed,
+                                           device=device)
+        return cls(data, adj, medoid, ell=ell, alpha=alpha, batch=batch,
+                   device=device)
+
     # -- state ----------------------------------------------------------
+    @property
+    def adjacency(self) -> np.ndarray:
+        """(n, R) int32 adjacency of the live nodes, on the host."""
+        return self._adj_ext[:self.n].cpu().numpy()
+
+    @property
+    def data(self) -> np.ndarray:
+        """(n, D) float32 vectors of the live nodes, on the host."""
+        return self._data_dev[:self.n].cpu().numpy()
+
     @property
     def capacity(self) -> int:
         """Allocated rows; grows geometrically, ≥ n."""

@@ -105,7 +105,8 @@ def distance_table(codebook: PQCodebook, queries: torch.Tensor) -> torch.Tensor:
 
 def adc_lookup(codes: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """ADC distance sum_m table[m, codes[:, m]] (left to right). codes
-    (N, M), table (M, K) -> (N,)."""
+    (N, M), table (M, K) -> (N,); leading dims batch: codes (B, N, M),
+    tables (B, M, K) -> (B, N)."""
     return adc_slab_ref(codes, table)
 
 

@@ -45,12 +45,18 @@ class PrefilterResult(NamedTuple):
     n_valid: torch.Tensor    # (B,)
 
 
-def _pq_topl(codes, codebook, query, cand_ids: torch.Tensor, l_rerank: int):
+def _pq_topl(codes, codebook, query, cand_ids: torch.Tensor, l_rerank: int,
+             distance_fn=None):
     """Top-``l_rerank`` of the candidates by ADC distance, ties to the
     earlier candidate; (-1, BIG) pads when there are fewer. Returns
-    (top_ids (l,), top_dists (l,))."""
+    (top_ids (l,), top_dists (l,)). A custom ``distance_fn(codes (S, M),
+    table (M, K)) -> (S,)`` scores the gathered code rows instead of the
+    gathered ``pq_scan`` entry."""
     table = pq_mod.distance_table(codebook, query)
-    d = ops.pq_scan_gather(codes, cand_ids, table)
+    if search.default_distance(distance_fn):
+        d = ops.pq_scan_gather(codes, cand_ids, table)
+    else:
+        d = distance_fn(codes[cand_ids.long()], table)
     return _stable_topl(cand_ids, d, l_rerank)
 
 
@@ -69,7 +75,7 @@ def _stable_topl(ids: torch.Tensor, keys: torch.Tensor, l_rerank: int):
 
 
 def scan_all_gated(codes, codebook, mem: InMemory, qf: QueryFilter, query,
-                   l_rerank: int):
+                   l_rerank: int, distance_fn=None):
     """Gated full-corpus ADC scan: the serve tier's last degrade rung.
 
     Every id is a candidate (no posting scan, no graph traversal — one
@@ -84,10 +90,15 @@ def scan_all_gated(codes, codebook, mem: InMemory, qf: QueryFilter, query,
     key carries the penalty are approx-invalid fill (the verifier drops
     them). The penalty is one float32 addition, as in ``repro``: at 1e12
     one float32 ulp is 65,536, so every rejected row gets the same key and
-    their ties break by id.
+    their ties break by id. A custom ``distance_fn`` (``repro``'s contract,
+    ``distance_fn(codes (N, M), table (M, K)) -> (N,)``) scores the codes
+    in place of ``ops.pq_scan``.
     """
     table = pq_mod.distance_table(codebook, query)
-    d = ops.pq_scan(codes, table)
+    if search.default_distance(distance_fn):
+        d = ops.pq_scan(codes, table)
+    else:
+        d = distance_fn(codes, table)
     n = codes.shape[0]
     ids = torch.arange(n, dtype=torch.int32, device=codes.device)
     ok = is_member_approx(qf, ids[None, :], mem)[0]
@@ -146,8 +157,7 @@ def prefilter_search(store: RecordStore, codes, codebook, selectors, qfilters,
     ``host_fetch`` (disk backend: ``DiskRecordStore.fetch_host``) replaces
     the record gather of the re-rank: the top-(L+δ) records are read from
     the slab files through the page cache — same fields, same
-    verification, the same output."""
-    search.check_distance_fn(distance_fn)
+    verification, the same output. ``distance_fn`` is :func:`_pq_topl`'s."""
     dev = codes.device
     B = len(selectors)
     queries = torch.as_tensor(np.asarray(queries, np.float32)).to(dev)
@@ -165,7 +175,7 @@ def prefilter_search(store: RecordStore, codes, codebook, selectors, qfilters,
         qf = QueryFilter(*(x[b:b + 1] for x in qf_dev))
         top_ids, _ = _pq_topl(codes, codebook, queries[b],
                               torch.from_numpy(cand).to(dev),
-                              params.l_rerank)
+                              params.l_rerank, distance_fn)
         if host_fetch is None:
             ids, dists, io, nv = _rerank_verify(store, qf, queries[b],
                                                 top_ids, params)

@@ -63,8 +63,8 @@ from repro_torch.core.selectors import (InMemory, QueryFilter,
                                         kernel_view, merged_table_words,
                                         take_filter_rows)
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.ref import BIG, INVALID_PENALTY, adc_slab_ref, \
-    sq_dist, visited_slot, visited_spec
+from repro_torch.kernels.ref import BIG, INVALID_PENALTY, sq_dist, \
+    visited_slot, visited_spec
 
 DEFAULT_HOP_CHUNK = 32    # hops between the driver's compaction checks
 MIN_COMPACT_BUCKET = 8    # narrowest bucket the driver compacts into
@@ -151,11 +151,24 @@ def _first_occurrence(cand: torch.Tensor, live: torch.Tensor,
     return torch.zeros_like(first_sorted).scatter_(-1, order, first_sorted)
 
 
-def _slab_pq(codes: torch.Tensor, ids: torch.Tensor,
-             tables: torch.Tensor) -> torch.Tensor:
-    """ADC distances of a gathered candidate slab: codes (N, M), ids (B, S),
-    tables (B, M, K) -> (B, S)."""
-    return adc_slab_ref(codes[ids.long()], tables)
+def default_distance(distance_fn) -> bool:
+    """``None`` and ``pq.adc_lookup`` both mean the default ADC distance,
+    which the fused path computes itself."""
+    return distance_fn is None or distance_fn is pq_mod.adc_lookup
+
+
+def row_distance(distance_fn, codes_slab: torch.Tensor,
+                 tables: torch.Tensor) -> torch.Tensor:
+    """``distance_fn`` over a gathered code slab (B, S, M) against tables
+    (B, M, K) -> (B, S). The contract is ``repro``'s, one query at a time:
+    ``distance_fn(codes (S, M), table (M, K)) -> (S,)``; ``repro`` vmaps it,
+    and since a ``ctypes`` kernel launch cannot be vmapped, a custom
+    function is called once per query row (``kernels.ops.pq_scan`` so runs
+    B launches). The default, whose leading dims batch, is one call."""
+    if default_distance(distance_fn):
+        return pq_mod.adc_lookup(codes_slab, tables)
+    return torch.stack([distance_fn(codes_slab[b], tables[b])
+                        for b in range(codes_slab.shape[0])])
 
 
 def _put_rows(buf: torch.Tensor, pos: torch.Tensor, val: torch.Tensor,
@@ -237,7 +250,8 @@ def _select_frontier(pool_ids, pool_key, pool_exp, active, W: int):
     return cur_ids, cur_live, pool_exp
 
 
-def _init(store, codes, codebook, mem, qf, queries, entry, params, entries):
+def _init(store, codes, codebook, mem, qf, queries, entry, params, entries,
+          distance_fn=None):
     """Seed the pool/visited/result state and select the first frontier."""
     p = params
     l_valid = p.l_valid or p.l_search
@@ -261,7 +275,8 @@ def _init(store, codes, codebook, mem, qf, queries, entry, params, entries):
 
     ent_valid = entries >= 0
     safe_ent = torch.where(ent_valid, entries, 0)
-    entry_d = _slab_pq(codes, safe_ent, tables)              # (B, E)
+    entry_d = row_distance(distance_fn, codes[safe_ent.long()],
+                           tables)                           # (B, E)
     entry_ok = is_member_approx(qf, safe_ent, mem) & ent_valid
     entry_key = torch.where(
         ent_valid, entry_d + torch.where(entry_ok, 0.0, INVALID_PENALTY),
@@ -295,12 +310,15 @@ def _init(store, codes, codebook, mem, qf, queries, entry, params, entries):
 
 
 def _hop_step(store, codes, mem, params, ctx, mc, st, rec,
-              fetch_fn=local_fetch) -> HopState:
+              fetch_fn=local_fetch, distance_fn=None) -> HopState:
     """Consume the in-flight record slab for one hop, merge, and select the
     next frontier (the step numbering follows ``repro``'s ``_hop_step``).
     ``st`` is consumed: its ``visited`` words are updated in place and
     returned in the new state (see :class:`HopState`). ``fetch_fn`` reads
-    the strict_in neighbours' attributes (see :func:`run_hops`)."""
+    the strict_in neighbours' attributes (see :func:`run_hops`). A custom
+    ``distance_fn`` (:func:`row_distance`) computes every slab's ADC
+    distance in place of the fused sum, and spec_in then screens with
+    ``is_member_approx`` instead of the fused kernel (``mc`` is None)."""
     p = params
     l_valid = p.l_valid or p.l_search
     P, W = p.l_search, p.beam_width
@@ -316,6 +334,9 @@ def _hop_step(store, codes, mem, params, ctx, mc, st, rec,
     dev = queries.device
     w_iota = torch.arange(W, device=dev)[None, :]
     hops = counters[:, 3]
+
+    def slab_dist(ids_slab):
+        return row_distance(distance_fn, codes[ids_slab.long()], tables)
 
     # ---- 2'. the carried slab ----
     vecs = rec["vectors"].reshape(B, W, D)
@@ -358,7 +379,7 @@ def _hop_step(store, codes, mem, params, ctx, mc, st, rec,
     if degraded_rows is not None:
         # a degraded row never saw its record: its ADC distance and approx
         # membership (a no-false-negative superset) stand in for it
-        deg_d = torch.where(cur_live, _slab_pq(codes, ids_safe, tables), BIG)
+        deg_d = torch.where(cur_live, slab_dist(ids_safe), BIG)
         deg_ok = is_member_approx(qf, ids_safe, mem) & cur_live
         ex_d = torch.where(degraded_rows, deg_d, ex_d)
         ex_ok = torch.where(degraded_rows, deg_ok, ex_ok)
@@ -397,15 +418,20 @@ def _hop_step(store, codes, mem, params, ctx, mc, st, rec,
     # ---- 5. fused candidate pass (distance + membership + key) ----
     if p.mode == "post":
         ok = fresh
-        key_slab = _slab_pq(codes, safe_cand, tables)
+        key_slab = slab_dist(safe_cand)
         approx_c = counters[:, 2]
     elif p.mode == "spec_in":
-        bl_i32, bc_i32, (f_scal, f_om, f_rf, f_blo, f_bhi) = mc
-        # the kernel gathers each candidate's code row, bloom word, bucket
-        # words and rare-list bit itself
-        key_slab, ok_approx = kops.hop_fused_gather(
-            codes, bl_i32, bc_i32, merged_tbl, safe_cand, tables, f_scal,
-            f_om, f_rf, f_blo, f_bhi)
+        if mc is not None:
+            bl_i32, bc_i32, (f_scal, f_om, f_rf, f_blo, f_bhi) = mc
+            # the kernel gathers each candidate's code row, bloom word,
+            # bucket words and rare-list bit itself
+            key_slab, ok_approx = kops.hop_fused_gather(
+                codes, bl_i32, bc_i32, merged_tbl, safe_cand, tables,
+                f_scal, f_om, f_rf, f_blo, f_bhi)
+        else:
+            ok_approx = is_member_approx(qf, safe_cand, mem)
+            key_slab = slab_dist(safe_cand) + torch.where(
+                ok_approx, 0.0, INVALID_PENALTY)
         ok = ok_approx & fresh
         approx_c = counters[:, 2] + live.sum(1, dtype=torch.int32)
     else:  # strict_in: read every fresh neighbor's attributes from "SSD"
@@ -425,7 +451,7 @@ def _hop_step(store, codes, mem, params, ctx, mc, st, rec,
         n_rv = nrec["rec_values"].reshape(B, W * C, store.n_fields)
         ok = is_member(qf, n_rl, n_rv) & fresh
         io = io + fresh.sum(1, dtype=torch.int32)          # 1 page / neighbor
-        key_slab = _slab_pq(codes, safe_cand, tables)
+        key_slab = slab_dist(safe_cand)
         approx_c = counters[:, 2]
 
     # ---- 6. slot selection: up to R approx-valid, bridge back-fill ----
@@ -503,9 +529,11 @@ def _issue(store: RecordStore, st: HopState, params: SearchParams,
     return fetch_fn(store, ids)
 
 
-def _mc(mem: InMemory, ctx: QueryCtx, params: SearchParams):
-    """The fused kernel's per-call inputs (spec_in only)."""
-    if params.mode != "spec_in":
+def _mc(mem: InMemory, ctx: QueryCtx, params: SearchParams,
+        distance_fn=None):
+    """The fused kernel's per-call inputs (spec_in with the default
+    distance only; a custom distance screens with ``is_member_approx``)."""
+    if params.mode != "spec_in" or not default_distance(distance_fn):
         return None
     bl_i32, bc_i32 = kernel_view(mem)
     return bl_i32, bc_i32, kernel_filter_params(ctx.qf)
@@ -513,7 +541,7 @@ def _mc(mem: InMemory, ctx: QueryCtx, params: SearchParams):
 
 def run_hops(store: RecordStore, codes, mem: InMemory, ctx: QueryCtx,
              st: HopState, n_hops: int, params: SearchParams,
-             fetch_fn=local_fetch) -> HopState:
+             fetch_fn=local_fetch, distance_fn=None) -> HopState:
     """Advance every query ``n_hops`` hops: settled rows are exact fixed
     points of the hop step, so hopping them changes nothing. Each hop
     consumes the slab fetched at the end of the previous one (the cross-hop
@@ -523,12 +551,13 @@ def run_hops(store: RecordStore, codes, mem: InMemory, ctx: QueryCtx,
     ``fetch_fn`` reads records: :func:`local_fetch` (the device backend)
     gathers them from ``store`` with no host synchronisation; the disk
     tier's callable (``storage/disk.py``) copies each hop's ids to the host
-    to read their pages, and in strict_in the gated attribute reads too."""
-    mc = _mc(mem, ctx, params)
+    to read their pages, and in strict_in the gated attribute reads too.
+    ``distance_fn`` is :func:`_hop_step`'s."""
+    mc = _mc(mem, ctx, params, distance_fn)
     rec = _issue(store, st, params, fetch_fn)
     for _ in range(n_hops):
         st = _hop_step(store, codes, mem, params, ctx, mc, st, rec,
-                       fetch_fn)
+                       fetch_fn, distance_fn)
         rec = _issue(store, st, params, fetch_fn)
     return st
 
@@ -549,14 +578,6 @@ def _finalize(st: HopState, params: SearchParams) -> SearchResult:
                         n_valid, fp, n_explored, c[:, 4], c[:, 5], c[:, 6])
 
 
-def check_distance_fn(distance_fn) -> None:
-    """The port searches with the default ADC distance only."""
-    if distance_fn is not None:
-        raise NotImplementedError(
-            "distance_fn: custom distances arrive with the reference "
-            "oracles, a later slice of the port (ROADMAP queue A, item 8)")
-
-
 def _device_inputs(qfilters, queries, entries, device):
     qf = filter_to_device(qfilters, device)
     queries = torch.as_tensor(queries, dtype=torch.float32).to(device)
@@ -569,11 +590,10 @@ def init_search(store, codes, codebook, mem, qfilters, queries, entry,
                 params: SearchParams, entries=None, distance_fn=None):
     """``(QueryCtx, HopState)`` for a batch — the seeding half of
     :func:`filtered_search`."""
-    check_distance_fn(distance_fn)
     qf, queries, entries = _device_inputs(qfilters, queries, entries,
                                           codes.device)
     return _init(store, codes, codebook, mem, qf, queries, entry, params,
-                 entries)
+                 entries, distance_fn)
 
 
 def finalize_search(st: HopState, params: SearchParams) -> SearchResult:
@@ -585,17 +605,18 @@ def filtered_search(store: RecordStore, codes, codebook, mem: InMemory,
                     params: SearchParams, entries=None,
                     distance_fn=None, fetch_fn=local_fetch) -> SearchResult:
     """Single-shot search: every query hops until the whole batch settles
-    (the oracle of the pipelined driver's compaction)."""
-    check_distance_fn(distance_fn)
+    (the oracle of the pipelined driver's compaction). ``distance_fn``
+    (``distance_fn(codes (S, M), table (M, K)) -> (S,)``, see
+    :func:`row_distance`) replaces the default ADC distance everywhere."""
     ctx, st = init_search(store, codes, codebook, mem, qfilters, queries,
-                          entry, params, entries)
-    mc = _mc(mem, ctx, params)
+                          entry, params, entries, distance_fn)
+    mc = _mc(mem, ctx, params, distance_fn)
     rec = _issue(store, st, params, fetch_fn)
     for _ in range(params.max_hops):
         if not bool(st.active.any()):
             break
         st = _hop_step(store, codes, mem, params, ctx, mc, st, rec,
-                       fetch_fn)
+                       fetch_fn, distance_fn)
         rec = _issue(store, st, params, fetch_fn)
     return _finalize(st, params)
 
@@ -632,7 +653,8 @@ def filtered_search_pipelined(store: RecordStore, codes, codebook,
                               hop_chunk: int = DEFAULT_HOP_CHUNK,
                               min_bucket: int = MIN_COMPACT_BUCKET,
                               async_readback: bool = True,
-                              distance_fn=None, fetch_fn=local_fetch):
+                              distance_fn=None, fetch_fn=local_fetch,
+                              collect_trace: bool = False):
     """Bucketed host driver: chunked hops + straggler compaction.
 
     Runs :func:`run_hops` ``hop_chunk`` hops at a time; after every chunk
@@ -646,13 +668,19 @@ def filtered_search_pipelined(store: RecordStore, codes, codebook,
     the previous chunk's active mask, so decisions run one chunk late on a
     stale mask — a superset of the truly active rows, and inactive rows are
     exact fixed points. ``hop_chunk=0`` runs the single-shot search.
-    ``fetch_fn`` is :func:`run_hops`'s.
+    ``fetch_fn`` and ``distance_fn`` are :func:`run_hops`'s.
+
+    With ``collect_trace=True`` returns ``(SearchResult, trace)``, the trace
+    one ``{"hop", "active", "bucket"}`` entry per observed chunk boundary:
+    the hops dispatched so far, the active rows counted and the working
+    width (with the async readback the observations lag dispatch by one
+    chunk); ``hop_chunk=0`` gives an empty trace.
     """
-    check_distance_fn(distance_fn)
     if hop_chunk <= 0:
-        return filtered_search(store, codes, codebook, mem, qfilters,
-                               queries, entry, params, entries=entries,
-                               fetch_fn=fetch_fn)
+        res = filtered_search(store, codes, codebook, mem, qfilters, queries,
+                              entry, params, entries=entries,
+                              distance_fn=distance_fn, fetch_fn=fetch_fn)
+        return (res, []) if collect_trace else res
     queries = np.asarray(queries, np.float32)
     orig_b = int(queries.shape[0])
     B = max(min_bucket, _pow2_at_least(orig_b))
@@ -668,7 +696,8 @@ def filtered_search_pipelined(store: RecordStore, codes, codebook,
             entries = _pad(entries)
     dev = codes.device
     full_ctx, full_st = init_search(store, codes, codebook, mem, qfilters,
-                                    queries, entry, params, entries=entries)
+                                    queries, entry, params, entries=entries,
+                                    distance_fn=distance_fn)
     if n_pad:
         act0 = full_st.active.clone()
         act0[orig_b:] = False
@@ -677,19 +706,25 @@ def filtered_search_pipelined(store: RecordStore, codes, codebook,
     work_map: np.ndarray | None = None   # None ⇒ identity (full width)
     work_valid: np.ndarray | None = None  # non-pad rows of the bucket
     width = B
+    hops_done = 0
+    trace: list = []
 
     def hop(ctx, st):
         st = run_hops(store, codes, mem, ctx, st, hop_chunk, params,
-                      fetch_fn)
+                      fetch_fn, distance_fn)
         return st, _MaskReader(st.active)
 
     act = _MaskReader(work_st.active).read()
     inflight = None                      # mask reader of the newest chunk
     while True:
         n_act = int(act.sum())
+        if collect_trace:
+            trace.append({"hop": hops_done, "active": n_act,
+                          "bucket": width})
         bucket = min(B, max(min_bucket, _pow2_at_least(max(n_act, 1))))
         if n_act and bucket >= width:
             work_st, mask = hop(work_ctx, work_st)
+            hops_done += hop_chunk
             if not async_readback:
                 act = mask.read()
                 continue
@@ -697,6 +732,7 @@ def filtered_search_pipelined(store: RecordStore, codes, codebook,
                 # prime the one-chunk pipeline: issue a second chunk so the
                 # device has work while the first mask comes back
                 work_st, inflight = hop(work_ctx, work_st)
+                hops_done += hop_chunk
                 act = mask.read()
             else:
                 act, inflight = inflight.read(), mask
@@ -729,8 +765,318 @@ def filtered_search_pipelined(store: RecordStore, codes, codebook,
             act = work_valid.copy()
             continue
         work_st, mask = hop(work_ctx, work_st)
+        hops_done += hop_chunk
         act = mask.read()
     res = finalize_search(full_st, params)
     if n_pad:
         res = SearchResult(*(a[:orig_b] for a in res))
-    return res
+    return (res, trace) if collect_trace else res
+
+
+# ---------------------------------------------------------------------------
+# Naive oracles (same semantics, naive primitives): the A/B reference and
+# the pre-fused baseline
+# ---------------------------------------------------------------------------
+
+def _exact_sq_dist(vecs: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Exact squared distances of vecs (B, W, D) to queries q (B, D)."""
+    return sq_dist(vecs, q[:, None, :])
+
+
+class _NaiveState(NamedTuple):
+    """One query per row of the naive oracles' state (leading dim B)."""
+    pool_ids: torch.Tensor    # (B, P) int32, key-ascending
+    pool_key: torch.Tensor    # (B, P) float32
+    explored: torch.Tensor    # (B, P) bool
+    seen: torch.Tensor        # (B, N + 1) bool ever-admitted ids (the last
+                              # column is the drop slot); (B, 0) in legacy
+    res_ids: torch.Tensor     # (B, res_cap) int32 explored, in hop order
+    res_d: torch.Tensor       # (B, res_cap) float32 exact distances
+    res_valid: torch.Tensor   # (B, res_cap) bool exact membership
+    counters: torch.Tensor    # (B, 4) int32: io, dist_comps, approx, hops
+
+
+class _NaiveCtx(NamedTuple):
+    queries: torch.Tensor     # (B, D)
+    tables: torch.Tensor      # (B, M, K)
+    qf: QueryFilter
+
+
+def _naive_init(codes, codebook, mem, qfilters, queries, entry, params,
+                entries, distance_fn, legacy: bool):
+    p = params
+    P = p.l_search
+    res_cap = p.max_hops * p.beam_width
+    n_ids = codes.shape[0]
+    qf, queries, entries = _device_inputs(qfilters, queries, entries,
+                                          codes.device)
+    B = queries.shape[0]
+    dev = queries.device
+    if entries is None:
+        entries = torch.full((B, 1), int(entry), dtype=torch.int32,
+                             device=dev)
+    E = entries.shape[1]
+    tables = pq_mod.distance_table(codebook, queries)
+    ent_valid = entries >= 0
+    safe_ent = torch.where(ent_valid, entries, 0)
+    entry_d = row_distance(distance_fn, codes[safe_ent.long()], tables)
+    entry_ok = is_member_approx(qf, safe_ent, mem) & ent_valid
+    entry_key = torch.where(
+        ent_valid, entry_d + torch.where(entry_ok, 0.0, INVALID_PENALTY),
+        BIG)
+    pool_ids = torch.full((B, P), -1, dtype=torch.int32, device=dev)
+    pool_ids[:, :E] = torch.where(ent_valid, entries, -1)
+    pool_key = torch.full((B, P), BIG, dtype=torch.float32, device=dev)
+    pool_key[:, :E] = entry_key
+    explored = torch.ones((B, P), dtype=torch.bool, device=dev)
+    explored[:, :E] = ~ent_valid
+    if legacy:
+        seen = torch.zeros((B, 0), dtype=torch.bool, device=dev)
+    else:
+        seen = torch.zeros((B, n_ids + 1), dtype=torch.bool, device=dev)
+        seen.scatter_(1, torch.where(ent_valid, safe_ent, n_ids).long(),
+                      True)
+    st = _NaiveState(
+        pool_ids, pool_key, explored, seen,
+        torch.full((B, res_cap), -1, dtype=torch.int32, device=dev),
+        torch.full((B, res_cap), BIG, dtype=torch.float32, device=dev),
+        torch.zeros((B, res_cap), dtype=torch.bool, device=dev),
+        torch.zeros((B, 4), dtype=torch.int32, device=dev))
+    return _NaiveCtx(queries, tables, qf), st
+
+
+def _naive_running(st: _NaiveState, params: SearchParams) -> torch.Tensor:
+    """Each row's loop condition: hops left, a frontier, and not settled —
+    the settled test re-sorts the row's whole explored buffer (the naive
+    form of the fused path's incremental bound)."""
+    l_valid = params.l_valid or params.l_search
+    res_cap = st.res_d.shape[1]
+    frontier = (~st.explored & (st.pool_key < BIG)).any(1)
+    n_ok = st.res_valid.sum(1)
+    kth = torch.sort(torch.where(st.res_valid, st.res_d, BIG), dim=1,
+                     stable=True).values[:, min(l_valid, res_cap) - 1]
+    best_unexp = torch.where(st.explored, BIG, st.pool_key).min(1).values
+    settled = (n_ok >= l_valid) & (best_unexp > kth)
+    return (st.counters[:, 3] < params.max_hops) & frontier & ~settled
+
+
+def _naive_hop(store, codes, mem, params, ctx: _NaiveCtx, st: _NaiveState,
+               run: torch.Tensor, distance_fn, fetch_fn,
+               legacy: bool) -> _NaiveState:
+    """One iteration of every row's loop; rows with ``run`` False keep
+    their state (the rows of ``repro``'s vmapped ``while_loop`` whose
+    condition failed). The oracle dedups against its exact ever-admitted
+    ``seen`` set and first occurrence in the slab; ``legacy`` instead
+    broadcasts every candidate against the pool, the explored buffer and
+    its own row, then the selected ids against each other."""
+    p = params
+    P, W = p.l_search, p.beam_width
+    R = store.degree
+    Rd = store.dense_degree if p.mode == "spec_in" else 0
+    C = R + Rd
+    rec_pages = store.pages_dense if p.mode == "spec_in" else store.pages_std
+    n_ids = codes.shape[0]
+    queries, tables, qf = ctx
+    B, D = queries.shape
+    dev = queries.device
+    (pool_ids, pool_key, explored, seen, res_ids, res_d, res_valid,
+     counters) = st
+    hops = counters[:, 3]
+    keep = run[:, None]
+
+    # ---- 1. pick best-W unexplored (by priority key) ----
+    masked = torch.where(explored, BIG, pool_key)
+    sel = torch.sort(masked, dim=1, stable=True).indices[:, :W]
+    cur_ids = torch.gather(pool_ids, 1, sel)
+    cur_live = torch.gather(masked, 1, sel) < BIG
+    explored = explored.scatter(1, sel, True)
+    safe_cur = torch.where(cur_live, cur_ids, 0)
+
+    # ---- 2. fetch records (vector + neighbors + attrs: one I/O) ----
+    rec = fetch_fn(store, safe_cur.reshape(-1))
+    vecs = rec["vectors"].reshape(B, W, D)
+    nbrs = rec["neighbors"].reshape(B, W, R)
+    rl = rec["rec_labels"].reshape(B, W, -1)
+    rv = rec["rec_values"].reshape(B, W, -1)
+    io = counters[:, 0] + cur_live.sum(1, dtype=torch.int32) * rec_pages
+
+    # ---- 3. re-rank + piggybacked exact verification ----
+    ex_d = torch.where(cur_live, _exact_sq_dist(vecs, queries), BIG)
+    ex_ok = is_member(qf, rl, rv) & cur_live
+    start = torch.where(run, hops, 0).long()[:, None] * W
+    pos = start + torch.arange(W, device=dev)[None, :]
+    res_ids = torch.where(keep, res_ids.scatter(
+        1, pos, torch.where(cur_live, cur_ids, -1)), res_ids)
+    res_d = torch.where(keep, res_d.scatter(1, pos, ex_d), res_d)
+    res_valid = torch.where(keep, res_valid.scatter(1, pos, ex_ok),
+                            res_valid)
+
+    # ---- 4. candidate generation per mode ----
+    if p.mode == "spec_in":
+        cand = torch.cat([nbrs, rec["dense_neighbors"].reshape(B, W, Rd)],
+                         dim=2)                                # (B, W, C)
+    else:
+        cand = nbrs
+    is_direct = torch.arange(C, device=dev) < R
+    cand = torch.where(cur_live[:, :, None], cand, -1)
+    live = cand >= 0
+    safe_cand = torch.where(live, cand, 0)
+    if legacy:
+        dup_pool = (cand[..., None] == pool_ids[:, None, None, :]).any(-1)
+        dup_res = (cand[..., None] == res_ids[:, None, None, :]).any(-1)
+        tri = torch.tril(torch.ones((C, C), dtype=torch.bool, device=dev),
+                         -1)
+        dup_row = ((cand[..., :, None] == cand[..., None, :]) & tri).any(-1)
+        fresh = live & ~dup_pool & ~dup_res & ~dup_row
+    else:
+        first = _first_occurrence(cand.reshape(B, W * C),
+                                  live.reshape(B, W * C),
+                                  n_ids).reshape(B, W, C)
+        was_seen = torch.gather(seen, 1, safe_cand.reshape(B, -1).long())
+        fresh = live & ~was_seen.reshape(B, W, C) & first
+
+    approx = counters[:, 2]
+    if p.mode == "post":
+        ok = fresh
+    elif p.mode == "spec_in":
+        ok = is_member_approx(qf, safe_cand.reshape(B, W * C),
+                              mem).reshape(B, W, C) & fresh
+        approx = approx + live.sum((1, 2), dtype=torch.int32)
+    else:  # strict_in: read every fresh neighbor's attrs from "SSD"
+        nrec = fetch_fn(store, safe_cand.reshape(-1))
+        n_rl = nrec["rec_labels"].reshape(B, W * C, -1)
+        n_rv = nrec["rec_values"].reshape(B, W * C, store.n_fields)
+        ok = is_member(qf, n_rl, n_rv).reshape(B, W, C) & fresh
+        io = io + fresh.sum((1, 2), dtype=torch.int32)        # 1 page / nbr
+
+    # ---- 5. slot selection: up to R approx-valid, bridge back-fill ----
+    if p.mode == "spec_in":
+        rank_ok = torch.cumsum(ok.int(), dim=2) - 1
+        fill = fresh & ~ok & is_direct
+        rank_fill = torch.cumsum(fill.int(), dim=2) - 1
+        n_ok_row = ok.sum(2, keepdim=True)
+        order_key = torch.where(
+            ok, rank_ok.float(),
+            torch.where(fill, (n_ok_row + rank_fill).float(), BIG))
+        take = torch.sort(order_key, dim=2, stable=True).indices[..., :R]
+        sel_ids = torch.gather(cand, 2, take)
+        sel_ok = torch.gather(ok, 2, take)
+        sel_live = sel_ok | torch.gather(fill, 2, take)
+    else:
+        sel_ids, sel_ok, sel_live = cand, ok, ok
+
+    # ---- 6. PQ distances for the selected candidates (unfused) ----
+    flat_ids = sel_ids.reshape(B, -1)
+    flat_live = sel_live.reshape(B, -1)
+    flat_ok = sel_ok.reshape(B, -1)
+    if legacy:
+        # cross-row dedup of the selected set (W > 1 beams may collide)
+        nf = flat_ids.shape[1]
+        trif = torch.tril(torch.ones((nf, nf), dtype=torch.bool,
+                                     device=dev), -1)
+        dupf = ((flat_ids[:, :, None] == flat_ids[:, None, :])
+                & trif).any(-1)
+        flat_live = flat_live & ~dupf
+        flat_ok = flat_ok & ~dupf
+    pq_d = row_distance(distance_fn,
+                        codes[torch.where(flat_live, flat_ids, 0).long()],
+                        tables)
+    key = pq_d + torch.where(flat_ok, 0.0, INVALID_PENALTY)
+    key = torch.where(flat_live, key, BIG)
+    dist_comps = counters[:, 1] + flat_live.sum(1, dtype=torch.int32)
+    if not legacy:
+        seen.scatter_(1, torch.where(flat_live & keep, flat_ids,
+                                     n_ids).long(), True)
+
+    # ---- 7. merge into the pool (full stable argsort) ----
+    all_ids = torch.cat([pool_ids, torch.where(flat_live, flat_ids, -1)], 1)
+    all_key = torch.cat([pool_key, key], 1)
+    all_exp = torch.cat([explored, torch.zeros_like(flat_live)], 1)
+    order = torch.sort(all_key, dim=1, stable=True).indices[:, :P]
+    counters_new = torch.stack([io, dist_comps, approx, hops + 1], 1).int()
+    return _NaiveState(
+        torch.where(keep, torch.gather(all_ids, 1, order), st.pool_ids),
+        torch.where(keep, torch.gather(all_key, 1, order), st.pool_key),
+        torch.where(keep, torch.gather(all_exp, 1, order), st.explored),
+        seen, res_ids, res_d, res_valid,
+        torch.where(keep, counters_new, counters))
+
+
+def _naive_result(st: _NaiveState, params: SearchParams) -> SearchResult:
+    """Top-k verified-valid by exact distance; the oracles draw no faults,
+    so their fault counters are zero."""
+    final_key = torch.where(st.res_valid, st.res_d, BIG)
+    order = torch.sort(final_key, dim=1, stable=True).indices[:, :params.k]
+    top_valid = torch.gather(st.res_valid, 1, order)
+    out_ids = torch.where(top_valid, torch.gather(st.res_ids, 1, order), -1)
+    out_d = torch.where(top_valid, torch.gather(st.res_d, 1, order),
+                        float("inf"))
+    c = st.counters
+    zero = torch.zeros_like(c[:, 0])
+    return SearchResult(
+        out_ids, out_d, c[:, 0], c[:, 3], c[:, 1], c[:, 2],
+        st.res_valid.sum(1, dtype=torch.int32),
+        ((st.res_ids >= 0) & ~st.res_valid).sum(1, dtype=torch.int32),
+        (st.res_ids >= 0).sum(1, dtype=torch.int32), zero, zero, zero)
+
+
+def _naive_search(store, codes, codebook, mem, qfilters, queries, entry,
+                  params, entries, distance_fn, fetch_fn,
+                  legacy: bool) -> SearchResult:
+    ctx, st = _naive_init(codes, codebook, mem, qfilters, queries, entry,
+                          params, entries, distance_fn, legacy)
+    while True:
+        run = _naive_running(st, params)
+        if not bool(run.any()):
+            break
+        st = _naive_hop(store, codes, mem, params, ctx, st, run,
+                        distance_fn, fetch_fn, legacy)
+    return _naive_result(st, params)
+
+
+def filtered_search_ref(store: RecordStore, codes, codebook, mem: InMemory,
+                        qfilters: QueryFilter, queries, entry: int,
+                        params: SearchParams, entries=None,
+                        distance_fn=None,
+                        fetch_fn=local_fetch) -> SearchResult:
+    """The A/B oracle for :func:`filtered_search` (``repro``'s
+    ``filtered_search_ref``, with the whole batch as the leading dimension
+    where ``repro`` vmaps over queries).
+
+    Same hop semantics — an *exact* ever-admitted visited set, the same
+    admission keys and early termination — with the naive primitives the
+    fused path replaces: a (B, N) ``seen`` set, first occurrence inside
+    the slab, a full stable argsort pool merge, a full re-sort of each
+    row's explored buffer in its loop condition, separate unfused distance
+    (``distance_fn``, :func:`row_distance`) and membership gathers, and
+    strict_in reading every neighbour's attributes through ``fetch_fn``
+    (the plain ``fetch_fn(store, ids)`` contract). A row whose condition
+    fails keeps its state while the others hop. It shares nothing with
+    the fused hop step but ``is_member``, ``is_member_approx``,
+    ``distance_table``, the distance function (``distance_fn`` or
+    ``pq.adc_lookup``) and the fetch. Parity bar: identical
+    ``io_pages``/``explored``/``hops``/``n_valid`` while the visited set is
+    exact (n_ids <= 2**20), recall within 1%. No fault plan: its fault
+    counters are zero."""
+    return _naive_search(store, codes, codebook, mem, qfilters, queries,
+                         entry, params, entries, distance_fn, fetch_fn,
+                         legacy=False)
+
+
+def filtered_search_legacy(store: RecordStore, codes, codebook,
+                           mem: InMemory, qfilters: QueryFilter, queries,
+                           entry: int, params: SearchParams, entries=None,
+                           distance_fn=None,
+                           fetch_fn=local_fetch) -> SearchResult:
+    """The pre-fused-pipeline search (``repro``'s
+    ``filtered_search_legacy``), the baseline the benchmarks measure
+    against, in the same batched naive form as :func:`filtered_search_ref`.
+    Its hop does quadratic work: pairwise dedup broadcasts against the pool
+    and the whole explored buffer, a full argsort merge, and a full
+    explored-buffer re-sort in the loop condition. Its dedup differs from
+    the fused path's (a candidate dropped from the pool may be re-proposed),
+    so its counters compare with ``repro``'s legacy only — use
+    :func:`filtered_search_ref` for A/B parity."""
+    return _naive_search(store, codes, codebook, mem, qfilters, queries,
+                         entry, params, entries, distance_fn, fetch_fn,
+                         legacy=True)

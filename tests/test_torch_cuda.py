@@ -454,3 +454,87 @@ def test_disk_backend_equals_device_backend_on_card(cuda, tmp_path):
             assert sg.disk["records_fetched"] > 0
             if run == "search_batch":
                 assert {"pre", "in", "post"} <= set(sg.mechanism)
+
+
+@pytest.fixture
+def card_and_cpu_engines(cuda):
+    """An engine built on the card over a 600-record corpus and its copy on
+    the CPU (``from_arrays``), with a range batch of 12 queries at 30%
+    selectivity in the port's filter form."""
+    from repro_torch.core import engine as teng
+    from repro_torch.core.selectors import stack_filters
+    from repro_torch.data.synth import (make_filtered_dataset,
+                                        make_sliding_range_selectors)
+    ds = make_filtered_dataset(n=600, d=24, n_queries=12, n_labels=12,
+                               seed=0)
+    cfg = teng.IndexConfig(r=12, r_dense=48, l_build=24, pq_m=8)
+    gpu = teng.FilteredANNEngine.build(ds.vectors, ds.label_offsets,
+                                       ds.label_flat, ds.n_labels, ds.values,
+                                       cfg, device=cuda)
+    cpu = teng.FilteredANNEngine.from_arrays(gpu.arrays(), cfg,
+                                             device="cpu")
+    sels = make_sliding_range_selectors(gpu, 0.30, 12)
+    qf = stack_filters([s.plan(cfg.ql, cfg.cap).qfilter for s in sels])
+    ents = np.full((12, 4), -1, np.int32)
+    for j, s in enumerate(sels):
+        seeds, _ = teng._strict_seed_ids(s, gpu.medoid, 4)
+        ents[j, :seeds.size] = seeds
+    return gpu, cpu, ds, qf, ents
+
+
+def _search_args(e, ds, qf, mode):
+    from repro_torch.core import search as tsearch
+    p = tsearch.SearchParams(l_search=24, k=5, max_hops=80, beam_width=2,
+                             mode=mode, l_valid=16)
+    return (e.store, e.codes, e.codebook, e.mem, qf, ds.queries, e.medoid,
+            p)
+
+
+def _fields_equal(got, want, tag):
+    for f in got._fields:
+        a, b = getattr(got, f).cpu(), getattr(want, f).cpu()
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), f"{tag}: {f}"
+
+
+@pytest.mark.parametrize("mode", ["post", "spec_in", "strict_in"])
+def test_oracle_on_card_equals_cpu(card_and_cpu_engines, mode):
+    """``filtered_search_ref`` on the card equals it on the CPU copy on
+    every field, bit for bit, and the card's fused search meets the
+    oracle's bar there (io_pages, explored, hops and n_valid equal)."""
+    from repro_torch.core import search as tsearch
+    gpu, cpu, ds, qf, ents = card_and_cpu_engines
+    e_arg = ents if mode == "strict_in" else None
+    on_card = tsearch.filtered_search_ref(*_search_args(gpu, ds, qf, mode),
+                                          entries=e_arg)
+    on_cpu = tsearch.filtered_search_ref(*_search_args(cpu, ds, qf, mode),
+                                         entries=e_arg)
+    _fields_equal(on_card, on_cpu, f"oracle {mode}")
+    fused = tsearch.filtered_search(*_search_args(gpu, ds, qf, mode),
+                                    entries=e_arg)
+    for f in ("io_pages", "explored", "hops", "n_valid"):
+        assert torch.equal(getattr(fused, f), getattr(on_card, f)), f
+
+
+@pytest.mark.parametrize("mode", ["post", "spec_in", "strict_in"])
+def test_pq_scan_distance_fn_on_card_equals_default(card_and_cpu_engines,
+                                                    mode):
+    """``distance_fn=ops.pq_scan`` on the card: the compacting driver's
+    result equals the default path's on every field, bit for bit, with
+    ``pq_scan`` launched (and, in spec_in, no ``hop_fused``)."""
+    from repro_torch.core import search as tsearch
+    gpu, _, ds, qf, ents = card_and_cpu_engines
+    e_arg = ents if mode == "strict_in" else None
+    args = _search_args(gpu, ds, qf, mode)
+    tops.reset_launches()
+    default = tsearch.filtered_search_pipelined(*args, entries=e_arg)
+    want_launches = tops.snapshot()
+    tops.reset_launches()
+    scanned = tsearch.filtered_search_pipelined(*args, entries=e_arg,
+                                                distance_fn=tops.pq_scan)
+    got_launches = tops.snapshot()
+    _fields_equal(scanned, default, f"pq_scan distance {mode}")
+    assert want_launches["pq_scan"] == 0 and got_launches["pq_scan"] > 0
+    assert got_launches["hop_fused"] == 0
+    assert (want_launches["hop_fused"] > 0) == (mode == "spec_in")

@@ -1,8 +1,11 @@
-"""The PyTorch port's batched Vamana build against the JAX package's, on
-the tests/test_graph.py corpus (1500×24, r=24, ell=40, α=1.2, seed 0): the
-same adjacency checks, the same medoid, recall@10 within 0.01 (both graphs
-measured by ``repro``'s greedy search); plus the batched prune and the
-reverse-edge scatter against ``repro``'s on fixed inputs."""
+"""The PyTorch port's Vamana builds against the JAX package's, on the
+tests/test_graph.py corpus (1500×24, r=24, ell=40, α=1.2, seed 0). The
+batched build: the same adjacency checks, the same medoid, recall@10 within
+0.01 (both graphs measured by ``repro``'s greedy search); the batched prune
+and the reverse-edge scatter against ``repro``'s on fixed inputs. The
+sequential reference build (numpy RobustPrune, navigated by the port's
+greedy search): the same adjacency and medoid as ``repro``'s, also through
+``IndexConfig(builder="reference")``."""
 import numpy as np
 import pytest
 import torch
@@ -211,3 +214,147 @@ def test_separated_clusters_match_repro():
     rec_j = jgraph.greedy_recall_at_k(x, adj_j, med_j, ds.queries, ell=40)
     rec_t = jgraph.greedy_recall_at_k(x, adj_t, med_t, ds.queries, ell=40)
     assert abs(rec_t - rec_j) <= 0.05, (rec_t, rec_j)
+
+
+# ---------------------------------------------------------------------------
+# The sequential reference builder and its navigator
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def ref_builds(data):
+    adj_j, med_j = jgraph.build_vamana(data, r=24, ell=40, alpha=1.2,
+                                       seed=0)
+    adj_t, med_t = tgraph.build_vamana(data, r=24, ell=40, alpha=1.2,
+                                       seed=0, device="cpu")
+    return adj_j, med_j, adj_t, med_t
+
+
+def test_robust_prune_matches_repro(data):
+    """The numpy RobustPrune copy keeps the same ids in the same order on
+    random candidate sets, at both passes' α and at r below and above the
+    set size."""
+    rng = np.random.default_rng(11)
+    for alpha in (1.0, 1.2):
+        for r in (4, 8, 64):
+            for _ in range(6):
+                p = int(rng.integers(0, len(data)))
+                c = rng.choice(len(data), size=int(rng.integers(0, 60)),
+                               replace=False)
+                c = np.unique(c[c != p]).astype(np.int32)
+                want = jgraph.robust_prune(data[p], c, data[c], r, alpha)
+                got = tgraph.robust_prune(data[p], c, data[c], r, alpha)
+                np.testing.assert_array_equal(got, want)
+
+
+def test_reference_build_matches_repro(data, ref_builds):
+    """``build_vamana(device="cpu")`` gives ``repro``'s reference graph:
+    the same adjacency row for row and the same medoid."""
+    adj_j, med_j, adj_t, med_t = ref_builds
+    assert med_t == med_j
+    _check_adjacency(data, adj_t, 24)
+    bad = np.flatnonzero((adj_t != adj_j).any(1))
+    assert bad.size == 0, (f"{bad.size} rows differ, first {bad[0]}: "
+                           f"repro={adj_j[bad[0]]} port={adj_t[bad[0]]}")
+
+
+def test_greedy_search_matches_repro(data, ref_builds):
+    """The reference builder's navigator equals ``repro``'s greedy search
+    on the reference graph: pools and their distances bit for bit."""
+    adj_j, med_j, _, _ = ref_builds
+    rng = np.random.default_rng(3)
+    q = (data[rng.integers(0, len(data), 16)]
+         + rng.normal(0, 0.05, (16, data.shape[1])).astype(np.float32))
+    want_ids, want_d = jgraph.greedy_search(
+        jnp.asarray(data), jnp.asarray(adj_j), med_j, jnp.asarray(q),
+        ell=40, max_hops=200)
+    got_ids, got_d = tgraph.greedy_search(
+        torch.from_numpy(data), torch.from_numpy(adj_j), med_j,
+        torch.from_numpy(q), ell=40, max_hops=200)
+    np.testing.assert_array_equal(got_ids.numpy(), np.asarray(want_ids))
+    np.testing.assert_array_equal(got_d.numpy(), np.asarray(want_d))
+
+
+def test_incremental_builder_build_appends(data):
+    """``IncrementalBuilder.build``, ``.adjacency`` and ``.data``, as
+    tests/test_graph.py holds ``repro``'s: ids contiguous, the adjacency
+    valid, inserted nodes wired in both directions and found by search."""
+    b = tgraph.IncrementalBuilder.build(data[:1000], r=16, ell=32,
+                                        alpha=1.2, seed=0, device="cpu")
+    ids1 = b.add_batch(data[1000:1200])
+    ids2 = b.add_batch(data[1200:1250])
+    assert ids1.tolist() == list(range(1000, 1200))
+    assert ids2.tolist() == list(range(1200, 1250))
+    assert b.n == 1250
+    np.testing.assert_array_equal(b.data, data[:1250])
+    adj = b.adjacency
+    _check_adjacency(data[:1250], adj, 16)
+    new_deg = (adj[1000:] >= 0).sum(1)
+    assert new_deg.mean() > 4
+    assert np.isin(adj[:1000], np.arange(1000, 1250)).sum() > 0
+    rng = np.random.default_rng(5)
+    qidx = rng.integers(1000, 1250, 20)
+    ids, _ = tgraph.greedy_search(torch.from_numpy(b.data),
+                                  torch.from_numpy(adj), b.medoid,
+                                  torch.from_numpy(data[qidx]), ell=32,
+                                  max_hops=200)
+    hits = sum(int(qidx[i]) in ids[i, :10].tolist() for i in range(20))
+    assert hits >= 18, hits
+
+
+def test_incremental_builder_build_rejects_bad_shape(data):
+    b = tgraph.IncrementalBuilder.build(data[:500], r=16, ell=32, seed=0,
+                                        device="cpu")
+    with pytest.raises(ValueError):
+        b.add_batch(np.zeros((3, 7), np.float32))
+    assert b.add_batch(np.zeros((0, 24), np.float32)).size == 0
+    assert b.adjacency.shape == (500, 16) and b.data.shape == (500, 24)
+
+
+@pytest.fixture(scope="module")
+def small_corpus():
+    from repro.data.synth import make_filtered_dataset
+    return make_filtered_dataset(n=600, d=24, n_queries=4, n_labels=12,
+                                 seed=0)
+
+
+def test_engine_reference_builder_matches_repro(small_corpus):
+    """``FilteredANNEngine.build`` with ``IndexConfig(builder="reference")``
+    builds ``repro``'s reference graph (adjacency and medoid); an unknown
+    builder raises ``repro``'s ValueError."""
+    from repro.core import engine as jeng
+    from repro_torch.core import engine as teng
+    ds = small_corpus
+    kw = dict(r=12, r_dense=48, l_build=24, pq_m=8)
+    args = (ds.vectors, ds.label_offsets, ds.label_flat, ds.n_labels,
+            ds.values)
+    je = jeng.FilteredANNEngine.build(
+        *args, jeng.IndexConfig(builder="reference", **kw))
+    te = teng.FilteredANNEngine.build(
+        *args, teng.IndexConfig(builder="reference", **kw), device="cpu")
+    assert te.medoid == je.medoid
+    np.testing.assert_array_equal(te.store.neighbors.numpy(),
+                                  np.asarray(je.store.neighbors))
+    assert "reference_s" in te.build_times
+    with pytest.raises(ValueError, match="unknown builder 'bogus'"):
+        teng.FilteredANNEngine.build(
+            *args, teng.IndexConfig(builder="bogus", **kw), device="cpu")
+
+
+def test_index_reference_builder_matches_repro(small_corpus):
+    """``Index.build(config=IndexConfig(builder="reference"))`` in both
+    packages: the same graph, the builder kept on the engine's config."""
+    from repro import api as japi
+    from repro_torch import api as tapi
+    ds = small_corpus
+    meta = ds.metadata()
+    kw = dict(r=12, r_dense=48, l_build=24, pq_m=8, builder="reference")
+    jidx = japi.Index.build(ds.vectors, meta, japi.IndexConfig(**kw))
+    tidx = tapi.Index.build(ds.vectors, meta, tapi.IndexConfig(**kw),
+                            device="cpu")
+    assert tidx.engine.config.builder == "reference"
+    assert tidx.engine.medoid == jidx.engine.medoid
+    np.testing.assert_array_equal(tidx.engine.store.neighbors.numpy(),
+                                  np.asarray(jidx.engine.store.neighbors))
+    with pytest.raises(ValueError, match="unknown builder"):
+        tapi.Index.build(ds.vectors[:32], meta[:32],
+                         tapi.IndexConfig(builder="bogus"), device="cpu")

@@ -203,7 +203,7 @@ def test_port_saves_repro_loads(pair, corpus, tmp_path):
 
 def test_checkpoints_byte_identical(pair, tmp_path):
     """The same index state saves to the same leaves in both packages, and
-    the sidecars agree but for the port's missing ``builder`` field."""
+    the sidecars agree field for field (``builder`` included)."""
     jidx, tidx, _, _ = pair
     jidx.save(str(tmp_path / "j"))
     tidx.save(str(tmp_path / "t"))
@@ -215,8 +215,35 @@ def test_checkpoints_byte_identical(pair, tmp_path):
             (tdir / leaf["file"]).read_bytes(), leaf["path"]
     jmeta = json.loads((jdir / "index_meta.json").read_text())
     tmeta = json.loads((tdir / "index_meta.json").read_text())
-    assert jmeta["config"].pop("builder") == "batched"
+    assert jmeta["config"]["builder"] == "batched"
     assert jmeta == tmeta
+
+
+def test_reference_builder_checkpoint_crosses_packages(corpus, tmp_path):
+    """A ``builder="reference"`` index saved by either package loads in the
+    other with its ``builder`` kept, the same graph, and the same sidecar
+    as the other package writes for the same state."""
+    vecs, meta, _, _ = corpus
+    kw = dict(r=12, r_dense=48, l_build=24, pq_m=8, max_labels=8, ql=4,
+              cap=1024, builder="reference")
+    jidx = japi.Index.build(vecs[:800], meta[:800], eng.IndexConfig(**kw))
+    tidx = port_index(jidx)
+    assert tidx.engine.config.builder == "reference"
+    jidx.save(str(tmp_path / "j"))
+    tidx.save(str(tmp_path / "t"))
+    jmeta = json.loads((tmp_path / "j" / "step_0" / "index_meta.json")
+                       .read_text())
+    tmeta = json.loads((tmp_path / "t" / "step_0" / "index_meta.json")
+                       .read_text())
+    assert jmeta["config"]["builder"] == "reference" and jmeta == tmeta
+    in_port = tapi.Index.load(str(tmp_path / "j"), device="cpu")
+    in_repro = japi.Index.load(str(tmp_path / "t"))
+    assert in_port.engine.config.builder == "reference"
+    assert in_repro.engine.config.builder == "reference"
+    np.testing.assert_array_equal(in_port.engine.store.neighbors.numpy(),
+                                  np.asarray(jidx.engine.store.neighbors))
+    np.testing.assert_array_equal(np.asarray(in_repro.engine.store.neighbors),
+                                  np.asarray(jidx.engine.store.neighbors))
 
 
 def test_insert_after_load_matches_repro(pair, corpus, tmp_path):

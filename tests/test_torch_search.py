@@ -20,6 +20,7 @@ from repro.core import search as search_mod
 from repro.core.selectors import stack_filters
 from repro.data.synth import make_selectors, make_sliding_range_selectors
 from repro_torch.core import engine as teng
+from repro_torch.core import pq as tpq
 from repro_torch.core import search as tsearch
 from repro_torch.core.selectors import stack_filters as t_stack_filters
 from repro_torch.data.synth import make_selectors as t_make_selectors
@@ -239,8 +240,10 @@ def _same_search(a, b, sels, ds, tag):
 
 
 def test_out_of_scope_paths_raise(port, shared_engine, shared_ds, tmp_path):
-    """Sharding (ROADMAP item 7) and a custom distance function (8) raise,
-    naming their item, and sharding a disk-backend engine or index raises
+    """Sharding (ROADMAP item 7) raises, naming its item, a custom distance
+    function (item 8a) is accepted and searched with (one call per query
+    row, here equal to the default), and sharding a disk-backend engine or
+    index raises
     ``repro``'s ValueError. The disk tier (item 6) is ported
     (tests/test_torch_storage.py): here ``to_disk`` and
     ``attach_disk_store`` work on the CPU on the shared engine's copies, and
@@ -252,8 +255,25 @@ def test_out_of_scope_paths_raise(port, shared_engine, shared_ds, tmp_path):
     from repro_torch.storage import DiskRecordStore
     with pytest.raises(NotImplementedError, match="item 7"):
         port.shard(2)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tsearch.check_distance_fn(lambda c, t: None)
+    # a custom distance is accepted (item 8a): the search runs it
+    assert not hasattr(tsearch, "check_distance_fn")
+    calls = []
+
+    def adc(codes, table):
+        calls.append(codes.shape[0])
+        return tpq.adc_lookup(codes, table)
+
+    nq = 4
+    tqf = t_stack_filters([s.plan(port.config.ql, port.config.cap).qfilter
+                           for s in t_make_sliding(port, 0.30, nq)])
+    _, p_torch = _params("post", 1)
+    args = (port.store, port.codes, port.codebook, port.mem, tqf,
+            shared_ds.queries[:nq], port.medoid, p_torch)
+    got = tsearch.filtered_search_pipelined(*args, distance_fn=adc)
+    want = tsearch.filtered_search_pipelined(*args)
+    assert calls
+    for f in tsearch.SearchResult._fields:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
     vecs = np.zeros((4, 8), np.float32)
     meta = [{"cat": 1}] * 4
     with pytest.raises(ValueError, match="device backend"):
@@ -444,3 +464,279 @@ def test_engine_fault_counters_match_repro(shared_ds, shared_engine, port):
         np.testing.assert_array_equal(getattr(got[2], f),
                                       getattr(want[2], f), err_msg=f)
     assert got[2].faults.sum() > 0
+
+
+# ---------------------------------------------------------------------------
+# The naive oracles (filtered_search_ref, filtered_search_legacy), the
+# distance_fn seam and the compaction trace, against repro and against the
+# port's fused path
+# ---------------------------------------------------------------------------
+
+def _oracle_inputs(ds, e, pe, mode, selectivity, w=2):
+    """One range batch at ``selectivity`` in both packages' forms (W=2, as
+    tests/test_search_parity.py runs its A/B grid)."""
+    nq = ds.queries.shape[0]
+    sels = make_sliding_range_selectors(e, selectivity, nq)
+    tsels = t_make_sliding(pe, selectivity, nq)
+    qf = stack_filters([s.plan(e.config.ql, e.config.cap).qfilter
+                        for s in sels])
+    tqf = t_stack_filters([s.plan(pe.config.ql, pe.config.cap).qfilter
+                           for s in tsels])
+    p_jax, p_torch = _params(mode, w)
+    entries = _entries(e, sels, mode)
+    jargs = (e.store, e.codes, e.codebook, e.mem, qf,
+             jnp.asarray(ds.queries), e.medoid, p_jax)
+    targs = (pe.store, pe.codes, pe.codebook, pe.mem, tqf, ds.queries,
+             pe.medoid, p_torch)
+    jent = None if entries is None else jnp.asarray(entries)
+    return sels, jargs, targs, jent, entries
+
+
+@pytest.fixture(scope="module")
+def port_oracle(shared_ds, shared_engine, port):
+    """The port's oracle on a grid cell (mode, selectivity), computed once
+    per module."""
+    runs = {}
+
+    def get(mode, selectivity):
+        if (mode, selectivity) not in runs:
+            _, _, targs, _, ents = _oracle_inputs(
+                shared_ds, shared_engine, port, mode, selectivity)
+            runs[mode, selectivity] = tsearch.filtered_search_ref(
+                *targs, entries=ents)
+        return runs[mode, selectivity]
+    return get
+
+
+@pytest.mark.parametrize("mode", ["post", "spec_in", "strict_in"])
+@pytest.mark.parametrize("selectivity", SELECTIVITIES)
+def test_ref_matches_repro(shared_ds, shared_engine, port, port_oracle,
+                           mode, selectivity):
+    """The port's oracle against repro's ``filtered_search_ref`` on the
+    same inputs: every SearchResult field per query (ids and counters
+    exactly, fault counters zero in both, distances allclose)."""
+    ds, e, pe = shared_ds, shared_engine, port
+    _, jargs, _, jent, _ = _oracle_inputs(ds, e, pe, mode, selectivity)
+    want = search_mod.filtered_search_ref(*jargs, entries=jent)
+    got = port_oracle(mode, selectivity)
+    _assert_same(want, got, f"ref {mode}@{selectivity}")
+    assert int(got.faults.sum() + got.retries.sum()
+               + got.degraded.sum()) == 0
+
+
+def _port_recalls(ds, pe, sels, ids):
+    out = []
+    for i, s in enumerate(sels):
+        qf = s.plan(pe.config.ql, pe.config.cap, pe.config.qr).qfilter
+        gt = teng.brute_force_filtered(pe.store.vectors, pe.store.rec_labels,
+                                       pe.store.rec_values, qf,
+                                       ds.queries[i], 10)
+        out.append(teng.recall_at_k(ids[i].numpy(), gt, 10))
+    return np.array(out)
+
+
+@pytest.mark.parametrize("mode", ["post", "spec_in", "strict_in"])
+@pytest.mark.parametrize("selectivity", SELECTIVITIES)
+def test_fused_matches_port_oracle(shared_ds, shared_engine, port,
+                                   port_oracle, mode, selectivity):
+    """repro's A/B bar (tests/test_search_parity.py) inside the port: the
+    fused ``filtered_search`` against the port's oracle — identical
+    io_pages, explored, hops and n_valid per query (the visited set is
+    exact at this size), mean recall@10 within 0.01."""
+    ds, e, pe = shared_ds, shared_engine, port
+    _, _, targs, _, ents = _oracle_inputs(ds, e, pe, mode, selectivity)
+    fused = tsearch.filtered_search(*targs, entries=ents)
+    ref = port_oracle(mode, selectivity)
+    for f in ("io_pages", "explored", "hops", "n_valid"):
+        assert torch.equal(getattr(fused, f), getattr(ref, f)), \
+            f"{mode}@{selectivity}: {f}"
+    tsels = t_make_sliding(pe, selectivity, ds.queries.shape[0])
+    r_f = _port_recalls(ds, pe, tsels, fused.ids)
+    r_r = _port_recalls(ds, pe, tsels, ref.ids)
+    assert abs(r_f.mean() - r_r.mean()) <= 0.01, (r_f.mean(), r_r.mean())
+
+
+@pytest.mark.parametrize("mode", ["post", "spec_in", "strict_in"])
+def test_legacy_matches_repro(shared_ds, shared_engine, port, mode):
+    """The port's pre-fused baseline against repro's
+    ``filtered_search_legacy``: every field per query."""
+    ds, e, pe = shared_ds, shared_engine, port
+    _, jargs, targs, jent, ents = _oracle_inputs(ds, e, pe, mode, 0.30)
+    want = search_mod.filtered_search_legacy(*jargs, entries=jent)
+    got = tsearch.filtered_search_legacy(*targs, entries=ents)
+    _assert_same(want, got, f"legacy {mode}")
+
+
+def _j_scaled_adc(codes, table):        # distinct identity and values
+    from repro.core import pq as jpq
+    return jpq.adc_lookup(codes, table) * jnp.float32(2.0)
+
+
+def _t_scaled_adc(codes, table):
+    return tpq.adc_lookup(codes, table) * 2.0
+
+
+SEARCH_ENTRIES = ("hop_fused_gather", "pq_scan", "pq_scan_gather",
+                  "or_scatter_", "or_scatter_new")
+
+
+@pytest.fixture
+def entry_calls(monkeypatch):
+    """Counts calls of the ``kernels.ops`` entries the search path uses
+    (the port calls them through the module, so wrapping its names sees
+    every call); on the CPU no kernel launches, so calls stand in for
+    launches."""
+    from repro_torch.kernels import ops
+    calls = dict.fromkeys(SEARCH_ENTRIES, 0)
+    for name in SEARCH_ENTRIES:
+        def call(*a, _name=name, _fn=getattr(ops, name), **kw):
+            calls[_name] += 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(ops, name, call)
+    return calls
+
+
+@pytest.mark.parametrize("mode", ["post", "spec_in", "strict_in"])
+def test_custom_distance_fn_matches_repro(shared_ds, shared_engine, port,
+                                          mode, entry_calls):
+    """A scaled-ADC ``distance_fn`` in each package (as
+    tests/test_search_parity.py does): the port's fused result equals its
+    oracle's and repro's fused result on every field, and spec_in screens
+    without the fused kernel. The default path calls the ``ops`` entries
+    it called before the seam existed — ``None`` and ``pq.adc_lookup``
+    alike — and launches (``ops.snapshot``) the same."""
+    from repro_torch.kernels import ops
+    ds, e, pe = shared_ds, shared_engine, port
+    _, jargs, targs, jent, ents = _oracle_inputs(ds, e, pe, mode, 0.30, 1)
+    want = search_mod.filtered_search(*jargs, distance_fn=_j_scaled_adc,
+                                      entries=jent)
+    got = tsearch.filtered_search(*targs, entries=ents,
+                                  distance_fn=_t_scaled_adc)
+    custom = dict(entry_calls)
+    ref = tsearch.filtered_search_ref(*targs, entries=ents,
+                                      distance_fn=_t_scaled_adc)
+    _assert_same(want, got, f"scaled ADC, fused vs repro, {mode}")
+    for f in tsearch.SearchResult._fields:
+        assert torch.equal(getattr(got, f), getattr(ref, f)), f
+    assert custom["hop_fused_gather"] == 0 and custom["pq_scan"] == 0
+
+    counts = []
+    for fn in (None, tpq.adc_lookup):
+        entry_calls.update(dict.fromkeys(SEARCH_ENTRIES, 0))
+        before = ops.snapshot()
+        res = tsearch.filtered_search(*targs, entries=ents, distance_fn=fn)
+        counts.append((dict(entry_calls), ops.snapshot() == before))
+        if fn is not None:
+            for f in tsearch.SearchResult._fields:
+                assert torch.equal(getattr(res, f), getattr(first, f)), f
+        first = res
+    assert counts[0] == counts[1]
+    calls = counts[0][0]
+    # one in-place visited update and, in spec_in, one fused pass a hop
+    assert calls["or_scatter_"] > 0
+    assert calls["pq_scan"] == calls["pq_scan_gather"] == 0
+    assert calls["hop_fused_gather"] == (calls["or_scatter_"]
+                                         if mode == "spec_in" else 0)
+
+
+@pytest.mark.parametrize("mode", ["post", "spec_in", "strict_in"])
+def test_pq_scan_distance_equals_default(shared_ds, port, mode,
+                                         entry_calls):
+    """``distance_fn=ops.pq_scan`` (its plain version on the CPU) equals
+    the default path on every field through the compacting driver and
+    through the oracle, calling the slab entry once per query row of every
+    slab."""
+    from repro_torch.kernels import ops
+    ds, pe = shared_ds, port
+    nq = ds.queries.shape[0]
+    tsels = t_make_sliding(pe, 0.30, nq)
+    tqf = t_stack_filters([s.plan(pe.config.ql, pe.config.cap).qfilter
+                           for s in tsels])
+    _, params = _params(mode, 1)
+    ents = None
+    if mode == "strict_in":
+        ents = np.full((nq, 4), -1, np.int32)
+        for j, s in enumerate(tsels):
+            seeds, _ = teng._strict_seed_ids(s, pe.medoid, 4)
+            ents[j, :seeds.size] = seeds
+    args = (pe.store, pe.codes, pe.codebook, pe.mem, tqf, ds.queries,
+            pe.medoid, params)
+    default = tsearch.filtered_search_pipelined(*args, entries=ents)
+    entry_calls.update(dict.fromkeys(SEARCH_ENTRIES, 0))
+    scanned = tsearch.filtered_search_pipelined(*args, entries=ents,
+                                                distance_fn=ops.pq_scan)
+    assert entry_calls["pq_scan"] > 0 and entry_calls["hop_fused_gather"] == 0
+    for f in tsearch.SearchResult._fields:
+        assert torch.equal(getattr(scanned, f), getattr(default, f)), f
+    ref = tsearch.filtered_search_ref(*args, entries=ents)
+    ref_scan = tsearch.filtered_search_ref(*args, entries=ents,
+                                           distance_fn=ops.pq_scan)
+    for f in tsearch.SearchResult._fields:
+        assert torch.equal(getattr(ref_scan, f), getattr(ref, f)), f
+
+
+def test_prefilter_distance_fn_matches_repro(shared_ds, shared_engine,
+                                             port):
+    """``prefilter_search(distance_fn=)`` and ``scan_all_gated(
+    distance_fn=)`` with the scaled ADC equal repro's."""
+    from repro.core import prefilter as jpre
+    from repro_torch.core import prefilter as tpre
+    from repro_torch.core.selectors import filter_to_device
+    ds, e, pe = shared_ds, shared_engine, port
+    nq = 8
+    sels = make_selectors(ds, e, "label", n_queries=nq)
+    tsels = t_make_selectors(ds, pe, "label", n_queries=nq)
+    qf = stack_filters([s.plan(e.config.ql, e.config.cap).qfilter
+                        for s in sels])
+    tqf = t_stack_filters([s.plan(pe.config.ql, pe.config.cap).qfilter
+                           for s in tsels])
+    q = ds.queries[:nq]
+    want = jpre.prefilter_search(
+        e.store, e.codes, e.codebook, sels, qf, jnp.asarray(q),
+        jpre.PrefilterParams(l_rerank=48), distance_fn=_j_scaled_adc)
+    got = tpre.prefilter_search(
+        pe.store, pe.codes, pe.codebook, tsels, tqf, q,
+        tpre.PrefilterParams(l_rerank=48), distance_fn=_t_scaled_adc)
+    for f in ("ids", "io_pages", "dist_comps", "n_valid"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      np.asarray(getattr(want, f)),
+                                      err_msg=f)
+    np.testing.assert_allclose(got.dists.numpy(), np.asarray(want.dists),
+                               rtol=1e-6, atol=1e-6)
+    dev_qf = filter_to_device(tqf, "cpu")
+    for b in range(3):
+        jqf = type(qf)(*(np.asarray(x)[b] for x in qf))
+        w_ids, w_keys = jpre.scan_all_gated(
+            e.codes, e.codebook, e.mem, jqf, jnp.asarray(q[b]), 48,
+            jpre.SCAN_CHUNK, _j_scaled_adc)
+        g_ids, g_keys = tpre.scan_all_gated(
+            pe.codes, pe.codebook, pe.mem,
+            type(dev_qf)(*(x[b:b + 1] for x in dev_qf)),
+            torch.from_numpy(q[b]), 48, distance_fn=_t_scaled_adc)
+        np.testing.assert_array_equal(g_ids.numpy(), np.asarray(w_ids))
+        np.testing.assert_array_equal(g_keys.numpy(), np.asarray(w_keys))
+
+
+@pytest.mark.parametrize("async_readback", [True, False])
+def test_collect_trace_matches_repro(shared_ds, shared_engine, port,
+                                     async_readback):
+    """``collect_trace=True``: the port's per-chunk trace equals repro's
+    with the synchronous and the async readback, and the result equals
+    the untraced one; ``hop_chunk=0`` gives ``(res, [])``."""
+    ds, e, pe = shared_ds, shared_engine, port
+    _, jargs, targs, _, _ = _oracle_inputs(ds, e, pe, "spec_in", 0.30, 1)
+    kw = dict(hop_chunk=8, min_bucket=2, async_readback=async_readback)
+    want, jtrace = search_mod.filtered_search_pipelined(
+        *jargs, collect_trace=True, **kw)
+    got, trace = tsearch.filtered_search_pipelined(*targs,
+                                                   collect_trace=True, **kw)
+    assert len(trace) > 2 and trace == jtrace
+    plain = tsearch.filtered_search_pipelined(*targs, **kw)
+    for f in tsearch.SearchResult._fields:
+        assert torch.equal(getattr(got, f), getattr(plain, f)), f
+    _assert_same(want, got, f"traced, async={async_readback}")
+    single, empty = tsearch.filtered_search_pipelined(
+        *targs, hop_chunk=0, collect_trace=True)
+    assert empty == []
+    for f in tsearch.SearchResult._fields:
+        assert torch.equal(getattr(single, f), getattr(plain, f)), f
