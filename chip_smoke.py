@@ -71,7 +71,8 @@ Phases, each printing one JSON line:
    after.
 7. lifecycle — the phase-5 ``Index`` is saved under ``build/`` (free and
    written bytes, seconds), loaded back on the card (the label batch
-   answers equal), grows by 10,000 inserted records (ids contiguous from N,
+   answers equal) and loaded again with ``shards=2`` (its label batch equal
+   to the unsharded reload's), grows by 10,000 inserted records (ids contiguous from N,
    ``prune_scan`` launched), and serves the label batch under the fault
    plan ``rate=0.1,seed=7`` (faults, retries, degraded, recall against the
    clean batch; every id of an undegraded query passes exact membership).
@@ -105,21 +106,37 @@ Phases, each printing one JSON line:
    printed); and the sequential reference builder beside the batched one
    on BENCH_build.json's corpus (n=12,000, d=48; seconds, greedy
    recall@10, batched ≥ reference − 0.01).
+10. shard — run after phase 9, on the same engine: every phase-4 batch
+   through ``engine.shard(2)`` and the label batch under the speculative
+   and strict_in policies through ``engine.shard(4)``, each equal per query
+   (ids, routes, counters, distances bit for bit) to an unsharded run made
+   beside it (seconds per batch, hop steps and ``hop_fused`` /
+   ``or_scatter`` launches per hop step of both); PyTorch calls per hop
+   sharded and unsharded and the device memory each runner added; the
+   PQ-navigated ``FilteredANNEngine.build(shards=2)`` on the phase-4 corpus
+   (``nav_prune_s`` / ``scatter_s``, greedy recall@10 and the share
+   reachable from the medoid beside phase 4's build; halved, not below
+   250,000 rows, while the smoke would pass 1,000 s) and
+   ``build_vamana_sharded`` at S = 4 with exact navigation on the first
+   100,000 rows, element for element ``build_vamana_batched`` on them. ``hop_fused_gather``, ``or_scatter_``
+   and ``prune_scan`` must launch.
 
-Phase 2 also covers approx_probe and l2_rerank (the latter against its
+Phase 2 also times ``hop_fused_gather`` at the shard widths B = 32 and 16
+and ``prune_scan`` on 512 and 256 of its 1024 rows (one shard's prune at
+S = 2 and 4), and covers approx_probe and l2_rerank (the latter against its
 plain version within rtol=1e-5, atol=1e-5·max(|v|²+|q|²), and with
 ``torch.cdist(vecs, q[None]).square()`` timed as its yardstick); phase 3
 also inserts the same batch on the card and on the CPU copy, runs the
 fault plan on both and saves on the card to load on the CPU.
 
 Then a ``kernels`` line (launches of hop_fused, or_scatter and prune_scan
-from phase 4 (each row also lists its launches in every phase, phases 8's
-and 9's included, and the line its ``hop_fused_gather``, ``or_scatter_`` and
+from phase 4 (each row also lists its launches in every phase, phases 8's,
+9's and 10's included, and the line its ``hop_fused_gather``, ``or_scatter_`` and
 ``pq_scan_gather`` calls in phase 8), of pq_scan from phase 5, of approx_probe and l2_rerank from
 phase 6; times from phase 2: hop_fused's of the gathered entry with the slab
-entry's beside it, or_scatter's of the in-place entry with the fresh-table
-and slab rows beside it, prune_scan's with the no-prune row beside it,
-pq_scan's with its cold, pre and pre_gather rows beside it,
+entry's and the shard-width rows beside it, or_scatter's of the in-place
+entry with the fresh-table and slab rows beside it, prune_scan's with the
+no-prune and shard-width rows beside it, pq_scan's with its cold, pre and pre_gather rows beside it,
 approx_probe's with its cold and 100,000-row rows beside it, and both
 launch floors), the card's
 name and power limit as ``nvidia-smi`` prints them, and last the result
@@ -155,7 +172,8 @@ MARGIN_S = 150.0
 # of slabs, written in ~10 s): ~560 s at most, the whole smoke 416-540 s
 # with its ~85 s of kernel and card-vs-CPU phases; the oracle phase adds
 # up to ~250 s (PERF.md §6, PR 18); host time varies by up to 40% between
-# machines
+# machines. Phase 10 (~340 s at N=1M) is left out: it cuts its own build
+# instead (SHARD_BUILD_MIN_N)
 FULL_S_PER_ROW = 900.0 / 1_000_000
 
 
@@ -317,7 +335,23 @@ def kernel_phase(dev) -> dict:
         lambda: ref.hop_fused_gather_ref(*gargs), shape=[b, c, m, n],
         max_abs_err=float((key_k - key_p).abs().max()), bound_ms=bms,
         bound_by=by)
-    del gargs
+    # the same at the shard widths of phase 10: each of S = 2 (4) shards
+    # launches it on its B/S = 32 (16) query rows
+    for bs in (32, 16):
+        sub = gargs[:3] + [a[:bs] for a in gargs[3:]]
+        key_k, ok_k = ops.hop_fused_gather(*sub)
+        key_p, ok_p = ref.hop_fused_gather_ref(*sub)
+        torch.cuda.synchronize()
+        assert torch.equal(ok_k, ok_p) and torch.equal(
+            key_k.view(torch.int32), key_p.view(torch.int32)), \
+            f"hop_fused/gather/B{bs} differs"
+        bms, by = bound(nbytes * bs / b, bs * c * m)
+        out[f"hop_fused/gather/B{bs}"] = timed(
+            lambda: ops.hop_fused_gather(*sub),
+            lambda: ref.hop_fused_gather_ref(*sub), shape=[bs, c, m, n],
+            max_abs_err=float((key_k - key_p).abs().max()), bound_ms=bms,
+            bound_by=by)
+    del gargs, sub
 
     # or_scatter: the visited set at N=1M (64, 32768 words) with one hop's
     # W·R = 32 slots, and the rare-list bitmap (64, ceil((N+1)/32)) with
@@ -405,6 +439,26 @@ def kernel_phase(dev) -> dict:
                 shape=[b, c], kept=kept,
                 max_abs_err=float((got.int() - want.int()).abs().max()),
                 bound_ms=bms, bound_by=by)
+            if (c, a2) != (96, 1.44):
+                continue
+            # the rows of one shard's prune in phase 10's sharded build:
+            # B/S = 512 (S = 2) and 256 (S = 4) of a 1024-row batch
+            for bs in (512, 256):
+                sdp, sdcc = tdp[:bs], tdcc[:bs]
+                got = ops.prune_scan(sdp, sdcc, a2, 32)
+                want = ref.prune_scan_ref(sdp, sdcc, a2, 32)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), \
+                    f"prune_scan C={c} a2={a2} B={bs}"
+                kept = int(got.sum())
+                bms, by = bound(bs * c * 4 + kept * c * 4 + bs * c,
+                                2 * kept * c)
+                out[f"prune_scan/C{c}/a2={a2}/B{bs}"] = timed(
+                    lambda: ops.prune_scan(sdp, sdcc, a2, 32),
+                    lambda: ref.prune_scan_ref(sdp, sdcc, a2, 32),
+                    shape=[bs, c], kept=kept, max_abs_err=float(
+                        (got.int() - want.int()).abs().max()),
+                    bound_ms=bms, bound_by=by)
 
     # prune_scan where no lane prunes another (a2·dcc > dp off the
     # diagonal), so every row keeps r = 32: the disconnected build's case
@@ -1342,14 +1396,21 @@ def lifecycle_phase(index, ds, dev) -> dict:
         loaded = api.Index.load(str(path), device=dev)
         torch.cuda.synchronize(dev)
         out["load_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded2 = api.Index.load(str(path), shards=2, device=dev)
+        torch.cuda.synchronize(dev)
+        out["load_shards2_s"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(path, ignore_errors=True)
-    assert len(loaded) == n0
+    assert len(loaded) == n0 and loaded2.engine.n_shards == 2
     _, clean_saved = _label_batch(e, ds, scfg)
-    compare_results("loaded vs saved", clean_saved,
-                _label_batch(loaded.engine, ds, scfg)[1])
+    _, clean_loaded = _label_batch(loaded.engine, ds, scfg)
+    compare_results("loaded vs saved", clean_saved, clean_loaded)
     out["loaded_answers_equal"] = True
-    del loaded
+    compare_results("loaded with shards=2 vs loaded", _label_batch(
+        loaded2.engine, ds, scfg)[1], clean_loaded, exact=True)
+    out["loaded_shards2_answers_equal"] = True
+    del loaded, loaded2
 
     extra = make_filtered_dataset(n=10_000, d=ds.vectors.shape[1],
                                   n_queries=1, n_labels=1000, seed=1)
@@ -1863,6 +1924,234 @@ def oracle_phase(e, ds, dev, reachable: float) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 10: sharded execution on the full-size engine
+# ---------------------------------------------------------------------------
+
+# the phase-4 batches (workload, policy), each run at S = 2; at S = 4 the
+# label batch under the speculative policy (its pre and spec_in routes) and
+# under strict_in
+SHARD_RUNS = ((2, "label", "speculative"), (2, "label_and", "speculative"),
+              (2, "range", "speculative"), (2, "hybrid", "speculative"),
+              (2, "range", "post"), (4, "label", "speculative"),
+              (4, "label", "strict_in"))
+EXACT_SHARD_N = 100_000         # rows of the exact-navigation build
+SHARD_BUILD_MIN_N = 250_000     # the PQ-navigated build's deepest cut
+# seconds per corpus row of the PQ-navigated build, seconds of the rest of
+# phase 10 after it (the exact build, the diagnostics) and seconds per
+# corpus row of phases 7 and 8: 262 per 1M, 50 and 170 per 1M in the
+# slowest run so far on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6,
+# run 19c)
+SHARD_BUILD_S_PER_ROW = 270.0 / 1_000_000
+SHARD_TAIL_S = 60.0
+AFTER_SHARD_S_PER_ROW = 180.0 / 1_000_000
+SMOKE_BUDGET_S = 1000.0         # the whole smoke's target
+
+
+@contextlib.contextmanager
+def hop_steps():
+    """Count ``search._hop_step`` calls while open: the unsharded hop loop
+    and every shard of the sharded runner call it through the module."""
+    from repro_torch.core import search
+    n = [0]
+    step = search._hop_step
+
+    def counted(*args, **kwargs):
+        n[0] += 1
+        return step(*args, **kwargs)
+
+    search._hop_step = counted
+    try:
+        yield n
+    finally:
+        search._hop_step = step
+
+
+def _shard_run(e, ds, dev, shards, wl, policy) -> dict:
+    """One phase-4 batch unsharded (warm from phase 4) and through
+    ``engine.shard(shards)``: the sharded answers equal the unsharded
+    run's per query, distances bit for bit. Reports seconds per batch, hop
+    steps and kernel launches of both."""
+    from repro_torch.core import engine as eng
+    from repro_torch.data.synth import make_selectors
+    from repro_torch.kernels import ops
+
+    sels = make_selectors(ds, e, wl)
+    scfg = eng.SearchConfig(policy=policy)
+    row = {"run": f"{wl}/{policy}", "shards": shards}
+    answers = {}
+    for s in (0, shards):
+        e.shard(s)
+        before = ops.snapshot()
+        with hop_steps() as steps:
+            res, secs = _synced(lambda: e.search(ds.queries, sels, scfg), dev)
+        after = ops.snapshot()
+        tag = "sharded" if s else "unsharded"
+        answers[tag] = res
+        row[tag] = {"s": secs, "hop_steps": steps[0],
+                    "launches": {k: after[k] - before[k] for k in after}}
+    e.shard(0)
+    compare_results(f"shard {row['run']} S={shards}", answers["sharded"],
+                    answers["unsharded"], exact=True)
+    stats = answers["unsharded"][2]
+    row["mechanisms"] = dict(collections.Counter(stats.mechanism))
+    row["mean_hops"] = float(stats.hops.mean())
+    row["sharded_over_unsharded_s"] = row["sharded"]["s"] / \
+        row["unsharded"]["s"]
+    for tag in ("unsharded", "sharded"):
+        r = row[tag]
+        r["launches_per_hop_step"] = {
+            k: r["launches"][k] / max(1, r["hop_steps"])
+            for k in ("hop_fused", "or_scatter")}
+    return row
+
+
+def _shard_hop_ops(e, ds, shards) -> dict:
+    """PyTorch operator calls (:func:`torch_ops`) of one hop of the spec_in
+    label batch (64 queries): ``run_hops`` unsharded, ``runner.run`` at S
+    shards; each from the seeded state, the next frontier's fetch
+    included."""
+    from repro_torch.core import distributed, search
+    from repro_torch.core.selectors import stack_filters
+    from repro_torch.data.synth import make_selectors
+
+    cfg = e.config
+    qf = stack_filters([s.plan(cfg.ql, cfg.cap, cfg.qr).qfilter
+                        for s in make_selectors(ds, e, "label")])
+    sp = search.SearchParams(l_search=64, k=10, max_hops=512, l_valid=32,
+                             mode="spec_in")
+    ctx, st = search.init_search(e.store, e.codes, e.codebook, e.mem, qf,
+                                 ds.queries, e.medoid, sp)
+    runner = distributed.ShardedSearchRunner(
+        distributed.local_plan(shards, e.device), e.store, e.codes,
+        e.codebook, e.mem)
+
+    def fresh():
+        return search.HopState(*(t.clone() for t in st))
+
+    return {"unsharded": torch_ops(lambda: search.run_hops(
+                e.store, e.codes, e.mem, ctx, fresh(), 1, sp)),
+            "sharded": torch_ops(lambda: runner.run(ctx, fresh(), 1, sp))}
+
+
+def _subset(ds, n: int):
+    """The first ``n`` records of the phase-4 dataset: (vectors,
+    label_offsets, label_flat, values)."""
+    off = ds.label_offsets[:n + 1]
+    return (ds.vectors[:n], off, ds.label_flat[:int(off[-1])],
+            ds.values[:n])
+
+
+def shard_phase(e, ds, dev, full: dict, t_start: float) -> dict:
+    """Phase 10 on the full-size engine (device backend, before phase 7's
+    inserts). ``shard_run`` lines: every phase-4 batch through
+    ``engine.shard(2)``, and the label batch under the speculative and
+    strict_in policies through ``engine.shard(4)``, each equal per query to
+    the unsharded run made beside it. ``shard_hop`` (PyTorch calls a hop
+    and the device memory each runner added), ``shard_build`` (the
+    PQ-navigated ``FilteredANNEngine.build(shards=2)`` on the phase-4 corpus
+    — halved, not below SHARD_BUILD_MIN_N rows, while the smoke would pass
+    SMOKE_BUDGET_S — against phase 4's build) and ``shard_exact_build``
+    (``build_vamana_sharded`` at S = 4 with exact navigation on the first
+    EXACT_SHARD_N rows, element for element ``build_vamana_batched`` on
+    them). Launch counts of the phase are returned under ``launches``."""
+    import numpy as np
+    import torch
+    from repro_torch.core import distributed, graph
+    from repro_torch.core import engine as eng
+    from repro_torch.kernels import ops
+
+    out = {"runs": []}
+    ops.reset_launches()
+    with entry_calls("hop_fused_gather", "hop_fused", "or_scatter_",
+                     "or_scatter_new", "or_scatter") as calls:
+        for shards, wl, policy in SHARD_RUNS:
+            row = _shard_run(e, ds, dev, shards, wl, policy)
+            emit({"phase": "shard_run", **row})
+            out["runs"].append(row)
+    out["entry_calls"] = dict(calls)
+    assert calls["hop_fused_gather"] > 0 and calls["or_scatter_"] > 0, \
+        "the sharded runs launched no hop_fused_gather / or_scatter_"
+    assert calls["hop_fused"] == 0 and calls["or_scatter"] == 0, \
+        "a slab entry was called in phase 10"
+
+    with uncounted():
+        hop = {"torch_ops_per_hop": {}, "runner_added_bytes": {}}
+        for shards in (2, 4):
+            hop["torch_ops_per_hop"][shards] = _shard_hop_ops(e, ds, shards)
+            torch.cuda.synchronize(dev)
+            m0 = torch.cuda.memory_allocated(dev)
+            e.shard(shards)
+            torch.cuda.synchronize(dev)
+            hop["runner_added_bytes"][shards] = \
+                torch.cuda.memory_allocated(dev) - m0
+            e.shard(0)
+        emit({"phase": "shard_hop", **hop})
+        out["hop"] = hop
+
+    # the PQ-navigated sharded build on the phase-4 corpus, halved (not
+    # below SHARD_BUILD_MIN_N rows) while the smoke would run past its budget
+    n = full["n"]
+    elapsed = time.perf_counter() - t_start
+    rest = elapsed + SHARD_TAIL_S + AFTER_SHARD_S_PER_ROW * full["n"]
+    while n // 2 >= SHARD_BUILD_MIN_N and \
+            rest + SHARD_BUILD_S_PER_ROW * n > SMOKE_BUDGET_S:
+        n //= 2
+    cut = None if n == full["n"] else (
+        f"sharded build N {full['n']} -> {n}: {elapsed:.0f} s elapsed, "
+        f"budget {SMOKE_BUDGET_S:.0f} s")
+    vectors, off, flat, values = _subset(ds, n)
+    cfg = eng.IndexConfig()
+    before = ops.snapshot()
+    e2, secs = _synced(lambda: eng.FilteredANNEngine.build(
+        vectors, off, flat, ds.n_labels, values, cfg, shards=2, device=dev),
+        dev)
+    after = ops.snapshot()
+    build = {"n": n, "cut": cut, "shards": e2.n_shards, "build_s": secs,
+             "build_stages_s": e2.build_times,
+             "launches": {k: after[k] - before[k] for k in after},
+             "phase4_build_s": full["build_s"],
+             "phase4_build_stages_s": full["build_stages_s"]}
+    assert e2.n_shards == 2, "the sharded build did not come back sharded"
+    assert build["launches"]["prune_scan"] > 0, \
+        "the sharded build launched no prune_scan"
+    with uncounted():
+        adj = e2.store.neighbors.cpu().numpy()
+        build["graph"] = graph.graph_stats(adj)
+        build["reachable_from_medoid"] = graph.reachable_fraction(adj,
+                                                                  e2.medoid)
+        build["greedy_recall_at_10"] = graph.greedy_recall_at_k(
+            vectors, adj, e2.medoid, ds.queries, ell=64, device=dev)
+    build["phase4_reachable_from_medoid"] = full["reachable_from_medoid"]
+    build["phase4_greedy_recall_at_10"] = full["greedy_recall_at_10"]
+    del e2, adj
+    torch.cuda.empty_cache()
+    emit({"phase": "shard_build", **build})
+    out["build"] = build
+
+    # exact navigation at S = 4 against the batched builder, on the card
+    n_ex = min(EXACT_SHARD_N, full["n"])
+    x = ds.vectors[:n_ex]
+    st, times = {}, {}
+    (adj_s, med_s), sharded_s = _synced(
+        lambda: distributed.build_vamana_sharded(
+            x, distributed.local_plan(4, dev), cfg.r, cfg.l_build,
+            cfg.alpha, seed=cfg.seed, stage_times=st), dev)
+    (adj_b, med_b), batched_s = _synced(lambda: graph.build_vamana_batched(
+        x, cfg.r, cfg.l_build, cfg.alpha, seed=cfg.seed, device=dev,
+        timings=times), dev)
+    exact = {"n": n_ex, "shards": 4, "sharded_s": sharded_s,
+             "stage_times_s": st, "batched_s": batched_s,
+             "batched_passes_s": times, "medoid_equal": med_s == med_b,
+             "rows_differing": int((adj_s != adj_b).any(1).sum())}
+    emit({"phase": "shard_exact_build", **exact})
+    assert exact["medoid_equal"] and exact["rows_differing"] == 0, \
+        "the exact-navigation sharded build differs from the batched one"
+    out["exact_build"] = exact
+    out["launches"] = ops.snapshot()
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 KERNELS = {
     "hop_fused": ("hop_fused/gather",
@@ -1884,15 +2173,19 @@ KERNELS = {
                   "src/repro/kernels/l2_rerank.py:35"),
 }
 # phase-2 rows reported beside a kernel's own: the slab entry of hop_fused
-# (the main path launches the gathered one), or_scatter's fresh-table rows
-# (the seeding's) and its out-of-place slab entry's two rows, the no-prune
-# row of prune_scan, pq_scan's cold-L2 scan and pre-route rows (the slab
-# entry and the gathered one the pre route launches), approx_probe's
-# cold-L2 and 100,000-row rows
-BESIDE = {"hop_fused": ("hop_fused",),
+# (the main path launches the gathered one) and the gathered one at phase
+# 10's shard widths, or_scatter's fresh-table rows (the seeding's) and its
+# out-of-place slab entry's two rows, the no-prune row of prune_scan and
+# its rows at phase 10's shard widths, pq_scan's cold-L2 scan and
+# pre-route rows (the slab entry and the gathered one the pre route
+# launches), approx_probe's cold-L2 and 100,000-row rows
+BESIDE = {"hop_fused": ("hop_fused", "hop_fused/gather/B32",
+                        "hop_fused/gather/B16"),
           "or_scatter": ("or_scatter/visited_new", "or_scatter/rare_list_new",
                          "or_scatter/visited", "or_scatter/rare_list"),
-          "prune_scan": ("prune_scan/C96/noprune",),
+          "prune_scan": ("prune_scan/C96/noprune",
+                         "prune_scan/C96/a2=1.44/B512",
+                         "prune_scan/C96/a2=1.44/B256"),
           "pq_scan": ("pq_scan/scan_cold", "pq_scan/pre",
                       "pq_scan/pre_gather"),
           "approx_probe": ("approx_probe/1M_cold", "approx_probe/100k")}
@@ -1963,6 +2256,14 @@ def main(argv=None) -> int:
     emit({"phase": "oracles", "seconds": oracles["seconds"],
           "launches": oracles["launches"]})
 
+    # phase 10 too runs on the engine as phase 4 built it
+    t0 = time.perf_counter()
+    shard = shard_phase(e, ds, dev, full, t_start)
+    shard["seconds"] = time.perf_counter() - t0
+    emit({"phase": "shard", "seconds": shard["seconds"],
+          "entry_calls": shard["entry_calls"],
+          "launches": shard["launches"]})
+
     t0 = time.perf_counter()
     life = lifecycle_phase(index, ds, dev)
     life["seconds"] = time.perf_counter() - t0
@@ -1976,7 +2277,7 @@ def main(argv=None) -> int:
 
     launches = {"full": full["launches"], "serve": serve["launches"],
                 "ops": opsr["launches"], "disk": disk["launches"],
-                "oracles": oracles["launches"]}
+                "oracles": oracles["launches"], "shard": shard["launches"]}
     rows = []
     for name, (key, source, replaces) in KERNELS.items():
         count = launches[LAUNCH_PHASE[name]][name]
@@ -2004,6 +2305,8 @@ def main(argv=None) -> int:
           "ops_phase_s": opsr["seconds"], "lifecycle_phase_s": life["seconds"],
           "disk_phase_s": disk["seconds"],
           "oracle_phase_s": oracles["seconds"],
+          "shard_phase_s": shard["seconds"],
+          "shard_build_cut": shard["build"]["cut"],
           "oracle_pq_scan_launches_per_hop_step":
               oracles["distance_fn"]["pq_scan_launches_per_hop_step"],
           "disk_entry_calls": {k: disk["entry_calls"].get(k, 0)

@@ -22,8 +22,8 @@ schema, defaults)``. Checkpoints are the JAX package's format (``ckpt``), so
 an index saved by either package loads in the other, on either backend:
 ``store="disk"`` serves the records from page-aligned slab files
 (``repro_torch.storage``), which a checkpoint carries in ``step_N/slabs``.
-Sharded builds are a later slice of the port and raise
-``NotImplementedError`` naming their ROADMAP item.
+``shards > 1`` builds, or loads, an index that serves over that many
+shards of its device (``FilteredANNEngine.shard``).
 """
 from __future__ import annotations
 
@@ -42,8 +42,8 @@ from repro_torch.api.filters import (FilterExpr, _check_fields, compile_expr,
 from repro_torch.api.schema import Schema
 from repro_torch.api.types import RequestStats, SearchRequest, SearchResult
 from repro_torch.ckpt import checkpoint as ckpt
-from repro_torch.core.engine import (ROADMAP_LATER, FilteredANNEngine,
-                                     IndexConfig, QueryStats, SearchConfig,
+from repro_torch.core.engine import (FilteredANNEngine, IndexConfig,
+                                     QueryStats, SearchConfig,
                                      brute_force_filtered)
 from repro_torch.core.faults import FaultPlan
 from repro_torch.core.labels import LabelStore
@@ -174,9 +174,13 @@ class Index:
         :class:`repro_torch.storage.StorageConfig` (cache size, read-ahead,
         device budget). Inserts require the device backend.
 
-        ``shards > 1`` is a later slice of the port and raises
-        ``NotImplementedError``; with ``store="disk"`` it is refused with
-        ``repro``'s ValueError.
+        ``shards > 1`` builds and serves over that many shards of
+        ``device`` (``FilteredANNEngine.build(shards=)``): the Vamana link
+        phase shards with PQ-approximate navigation and the engine comes
+        back sharded, so ``search_batch`` runs the sharded hop loop. Its
+        graph differs from ``shards=0``'s (recall within the batched
+        build's ±1%); toggling ``engine.shard`` on one index leaves every
+        answer equal. The disk backend refuses it.
         """
         if store not in ("device", "disk"):
             raise ValueError(f"unknown store backend {store!r} "
@@ -184,10 +188,6 @@ class Index:
         if shards > 1 and store == "disk":
             raise ValueError("shards > 1 requires the device backend: "
                              "the disk tier owns the fetch seam")
-        if shards > 1:
-            raise NotImplementedError(
-                "Index.build(shards > 1): sharding on torch.distributed is "
-                + ROADMAP_LATER.format(7))
         vectors = np.asarray(vectors, np.float32)
         if len(metadata) != vectors.shape[0]:
             raise ValueError(f"{vectors.shape[0]} vectors but "
@@ -209,7 +209,7 @@ class Index:
                                                               schema)
         engine = FilteredANNEngine.build(
             vectors, offsets, label_flat, max(1, len(vocab)), values, config,
-            device=device)
+            shards=shards, device=device)
         if store == "disk":
             if storage_dir is None:
                 storage_dir = tempfile.mkdtemp(prefix="repro_slabs_")
@@ -359,12 +359,11 @@ class Index:
         checkpoints (one numeric field, flat range arrays) load through
         :func:`_shim_legacy_checkpoint`. A checkpoint of the disk backend
         serves from its ``step_N/slabs``, whose sha256 is checked against
-        the meta first (a mismatch is a corrupted step). ``shards > 1`` is a
-        later slice of the port."""
-        if shards > 1:
-            raise NotImplementedError(
-                "Index.load(shards > 1): sharding on torch.distributed is "
-                + ROADMAP_LATER.format(7))
+        the meta first (a mismatch is a corrupted step). ``shards > 1``
+        re-shards the restored device-backend engine
+        (:meth:`FilteredANNEngine.shard`; a disk checkpoint raises):
+        checkpoints carry no shard state, so the shard count is a load-time
+        serving choice."""
         ckpt.reap_tmp(path)
         steps = sorted(ckpt._list_steps(path), reverse=True)
         if not steps:
@@ -437,6 +436,8 @@ class Index:
                  "rec_values": t["store_rec_values"]},
                 IndexConfig(**config), device=device,
                 label_store=label_store, range_store=range_store)
+        if shards > 1:
+            engine.shard(shards)   # raises on the disk backend
         vocab = {(f, v): lab for f, v, lab in meta["vocab"]}
         defaults = dict(meta["defaults"])
         if isinstance(defaults.get("fault_plan"), dict):

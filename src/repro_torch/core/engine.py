@@ -26,8 +26,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from repro_torch.core import cost_model, graph, io_sim, pq as pq_mod, \
-    prefilter, search
+from repro_torch.core import cost_model, distributed, graph, io_sim, \
+    pq as pq_mod, prefilter, search
 from repro_torch.core.faults import FaultPlan
 from repro_torch.core.labels import (LabelStore, build_label_store,
                                      extend_label_store, padded_rows_from_csr,
@@ -40,8 +40,6 @@ from repro_torch.core.selectors import (InMemory, QueryFilter, Selector,
                                         stack_filters)
 from repro_torch.device import resolve_device
 from repro_torch.storage import DiskRecordStore, StorageConfig
-
-ROADMAP_LATER = "a later slice of the port (ROADMAP queue A, item {})"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,6 +155,7 @@ class FilteredANNEngine:
         self.disk_store = None    # storage.DiskRecordStore on the disk backend
         self.io_model: io_sim.IOModel | None = None
                                   # fitted from measured reads (calibrate_io)
+        self._runner = None       # ShardedSearchRunner when shard()ed
 
     def calibrate(self, source="BENCH_search.json") -> bool:
         """Swap the router's per-hop compute constants for measured ones
@@ -185,11 +184,19 @@ class FilteredANNEngine:
               device=None) -> "FilteredANNEngine":
         """Build the index on ``device`` (``None``: the card). ``values`` is
         the numeric attribute matrix (n, F), or (n,) for one field.
-        ``build_times`` records the seconds of each stage."""
-        if shards > 1:
-            raise NotImplementedError(
-                "shards > 1: sharding on torch.distributed is "
-                + ROADMAP_LATER.format(7))
+        ``build_times`` records the seconds of each stage.
+
+        ``shards > 1`` builds and serves over that many shards on
+        ``device`` (``distributed.local_plan``): the Vamana link phase runs
+        per shard with PQ-approximate navigation
+        (``distributed.build_vamana_sharded``; the codebook is trained first
+        so ADC distances steer the beam pools, the RobustPrune re-rank stays
+        exact, recall within the batched build's ±1%), and the engine comes
+        back :meth:`shard`-ed."""
+        if shards > 1 and config.builder != "batched":
+            raise ValueError(
+                "shards > 1 requires builder='batched' (the sharded "
+                f"link path), got {config.builder!r}")
         dev = resolve_device(device)
         times: dict = {}
         vectors = np.asarray(vectors, np.float32)
@@ -207,7 +214,12 @@ class FilteredANNEngine:
         graph.sync(dev)
         times["pq_s"] = time.perf_counter() - t0
 
-        if config.builder == "batched":
+        if shards > 1:
+            adj, medoid = distributed.build_vamana_sharded(
+                vectors, distributed.local_plan(shards, dev), config.r,
+                config.l_build, config.alpha, seed=config.seed, codes=codes,
+                codebook=codebook, stage_times=times)
+        elif config.builder == "batched":
             adj, medoid = graph.build_vamana_batched(
                 vectors, config.r, config.l_build, config.alpha,
                 seed=config.seed, device=dev, timings=times)
@@ -230,6 +242,8 @@ class FilteredANNEngine:
         graph.sync(dev)
         times["records_s"] = time.perf_counter() - t0
         eng.build_times = times
+        if shards > 1:
+            eng.shard(shards)
         return eng
 
     @classmethod
@@ -354,15 +368,30 @@ class FilteredANNEngine:
 
     # ------------------------------------------------------------------
     def shard(self, shards: int) -> "FilteredANNEngine":
+        """Route the pipelined hop loop through ``shards`` shards on this
+        engine's device (``distributed.ShardedSearchRunner`` over
+        ``distributed.local_plan``): the record store is split by id range
+        (views, no copy), queries row-shard per bucket, and results stay
+        bit-identical to the unsharded driver. ``shards in (0, 1)`` reverts
+        to unsharded execution. In place; returns self. Requires the device
+        backend: the disk tier owns the fetch seam."""
         if shards in (0, 1):
+            self._runner = None
             return self
         if self.disk_store is not None:
             raise ValueError(
                 "sharded execution requires the device backend: the disk "
                 "tier's host fetch already owns the fetch_fn seam "
                 "(shard before to_disk, or serve from the device store)")
-        raise NotImplementedError("shard(): sharding on torch.distributed "
-                                  "is " + ROADMAP_LATER.format(7))
+        self._runner = distributed.ShardedSearchRunner(
+            distributed.local_plan(shards, self.device), self.store,
+            self.codes, self.codebook, self.mem)
+        return self
+
+    @property
+    def n_shards(self) -> int:
+        """Shards the hop loop spans (1: unsharded)."""
+        return self._runner.n_shards if self._runner is not None else 1
 
     def to_disk(self, path: str, storage_config=None) -> "FilteredANNEngine":
         """Switch this engine to the disk backend (``storage/disk.py``).
@@ -385,6 +414,7 @@ class FilteredANNEngine:
         self.disk_store = disk_store
         self.store = disk_store.stub_store(self.device)
         self._builder = None      # drops its device copy of the records
+        self._runner = None       # the disk tier owns the fetch seam now
 
     def calibrate_io(self) -> "io_sim.IOModel | None":
         """Fit :class:`io_sim.IOModel` from the disk tier's measured read
@@ -461,6 +491,10 @@ class FilteredANNEngine:
 
         self._refresh_padded_stores(n0, m, vectors)
         self.n = n0 + m
+        if self._runner is not None:
+            # the runner's shards view the old tensors: re-shard over the
+            # refreshed stores
+            self.shard(self._runner.n_shards)
         return ids
 
     def _refresh_padded_stores(self, n0: int, m: int, new_vectors):
@@ -759,7 +793,8 @@ class FilteredANNEngine:
                 sub_q, self.medoid, sp, entries=entries,
                 hop_chunk=scfg.hop_chunk,
                 fetch_fn=(ds.fetch_callable if ds is not None
-                          else search.local_fetch))
+                          else search.local_fetch),
+                runner=self._runner)      # None on the disk backend
             r = {f: getattr(res, f).cpu().numpy()
                  for f in search.SearchResult._fields}
             prefetch = np.array([plans[i].pages_prefetch for i in idxs]) \

@@ -103,25 +103,28 @@ def greedy_search_beam(data, adj, entry: int, queries, ell: int,
                        max_hops: int, width: int = 4):
     """Beam variant: explores the ``width`` best unexplored pool entries per
     step. Returns (pool_ids, pool_dists): (B, ell) ascending."""
-    return _beam_pool(data, adj, entry, queries, ell, max_hops, width)
+    return _beam_pool(adj, entry, queries.shape[0], ell, max_hops, width,
+                      lambda ids: _sqd(data, ids, queries))
 
 
-def _beam_pool(data, adj, entry, queries, ell, max_hops, width):
+def _beam_pool(adj, entry, B, ell, max_hops, width, dist_fn):
     """The beam-pool navigation of ``repro``'s ``_beam_pool`` with the
-    query batch as the leading dimension and exact distances: each row
-    explores its ``width`` best unexplored pool entries per step, dedups
-    their neighbors against its pool and across the beams, and merges by
-    one stable sort; a row whose pool has no finite unexplored entry stops
-    (keeps its state) while the others go on."""
-    B = queries.shape[0]
-    dev = queries.device
+    batch of B queries as the leading dimension and a pluggable distance:
+    ``dist_fn(ids (B, C) int32) -> (B, C)`` float32 (ids already clamped
+    non-negative; this navigator masks invalid lanes to +inf). Exact
+    distances for :func:`greedy_search_beam`, ADC distances for the sharded
+    build's PQ navigation (``core/distributed.py``). Each row explores its
+    ``width`` best unexplored pool entries per step, dedups their neighbors
+    against its pool and across the beams, and merges by one stable sort; a
+    row whose pool has no finite unexplored entry stops (keeps its state)
+    while the others go on."""
     r = adj.shape[1]
     c = width * r
-    ent = torch.full((B, 1), int(entry), dtype=torch.int32, device=dev)
+    dev = adj.device
     pool_ids = torch.full((B, ell), -1, dtype=torch.int32, device=dev)
-    pool_ids[:, :1] = ent
+    pool_ids[:, :1] = int(entry)
     pool_d = torch.full((B, ell), float("inf"), device=dev)
-    pool_d[:, :1] = _sqd(data, ent, queries)
+    pool_d[:, :1] = dist_fn(pool_ids[:, :1])
     explored = torch.zeros((B, ell), dtype=torch.bool, device=dev)
     tri = torch.tril(torch.ones((c, c), dtype=torch.bool, device=dev), -1)
     inf = float("inf")
@@ -137,8 +140,7 @@ def _beam_pool(data, adj, entry, queries, ell, max_hops, width):
         nbrs = adj[cur.long()]                                  # (B, w, r)
         nbrs = torch.where(cur_live[:, :, None], nbrs, -1).reshape(B, c)
         valid = nbrs >= 0
-        nd = torch.where(valid, _sqd(data, torch.where(valid, nbrs, 0),
-                                     queries), inf)
+        nd = torch.where(valid, dist_fn(torch.where(valid, nbrs, 0)), inf)
         # dedup against the pool and across the beams' rows
         dup = (nbrs[:, :, None] == pool_ids[:, None, :]).any(2)
         dup |= ((nbrs[:, :, None] == nbrs[:, None, :]) & tri).any(2)

@@ -654,7 +654,7 @@ def filtered_search_pipelined(store: RecordStore, codes, codebook,
                               min_bucket: int = MIN_COMPACT_BUCKET,
                               async_readback: bool = True,
                               distance_fn=None, fetch_fn=local_fetch,
-                              collect_trace: bool = False):
+                              collect_trace: bool = False, runner=None):
     """Bucketed host driver: chunked hops + straggler compaction.
 
     Runs :func:`run_hops` ``hop_chunk`` hops at a time; after every chunk
@@ -675,7 +675,19 @@ def filtered_search_pipelined(store: RecordStore, codes, codebook,
     the hops dispatched so far, the active rows counted and the working
     width (with the async readback the observations lag dispatch by one
     chunk); ``hop_chunk=0`` gives an empty trace.
+
+    ``runner`` (a ``distributed.ShardedSearchRunner``) replaces
+    :func:`run_hops` with its sharded hop over the sharded record store
+    (``fetch_fn`` is then the runner's and ignored here); seeding,
+    compaction and finalisation run here unchanged. ``min_bucket`` is raised
+    to ``runner.n_shards`` so every bucket (a power of two, as the shard
+    count is) splits evenly, and ``hop_chunk=0`` becomes one ``max_hops``
+    chunk through the runner. Results equal the single-device driver's.
     """
+    if runner is not None:
+        min_bucket = max(min_bucket, runner.n_shards)
+        if hop_chunk <= 0:
+            hop_chunk = params.max_hops
     if hop_chunk <= 0:
         res = filtered_search(store, codes, codebook, mem, qfilters, queries,
                               entry, params, entries=entries,
@@ -710,6 +722,9 @@ def filtered_search_pipelined(store: RecordStore, codes, codebook,
     trace: list = []
 
     def hop(ctx, st):
+        if runner is not None:
+            st, active = runner.run(ctx, st, hop_chunk, params, distance_fn)
+            return st, _MaskReader(active)
         st = run_hops(store, codes, mem, ctx, st, hop_chunk, params,
                       fetch_fn, distance_fn)
         return st, _MaskReader(st.active)

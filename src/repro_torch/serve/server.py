@@ -122,8 +122,8 @@ class ServerStats:
     healthy: bool                # worker thread alive
     ready: bool                  # healthy ∧ accepting (not stopping)
     warmed: bool                 # warmup() has run
-    shards: int = 1              # mesh shards the hop loop spans
-                                 # (engine.n_shards; 1 = single-device)
+    shards: int = 1              # shards the hop loop spans
+                                 # (engine.n_shards; 1 = unsharded)
 
 
 @dataclasses.dataclass
@@ -140,8 +140,10 @@ class _Entry:
 
 class SearchServer:
     """Threaded serving frontend over an
-    :class:`~repro_torch.api.index.Index`. ``stats().shards`` reports the
-    engine's shard count (1 until sharding is ported)."""
+    :class:`~repro_torch.api.index.Index`. A sharded index
+    (``Index.build(shards=)``, ``Index.load(shards=)``) serves through the
+    same path: each flush's groups run their hop loop through the engine's
+    sharded runner. ``stats().shards`` reports ``engine.n_shards``."""
 
     def __init__(self, index, config: ServerConfig = ServerConfig(),
                  ladder: tuple = cost_model.DEGRADE_LADDER):
@@ -507,4 +509,4 @@ class SearchServer:
                 healthy=alive,
                 ready=alive and not self._stop,
                 warmed=self._warmed,
-                shards=getattr(self.index.engine, "n_shards", 1))
+                shards=self.index.engine.n_shards)

@@ -538,3 +538,35 @@ def test_pq_scan_distance_fn_on_card_equals_default(card_and_cpu_engines,
     assert want_launches["pq_scan"] == 0 and got_launches["pq_scan"] > 0
     assert got_launches["hop_fused"] == 0
     assert (want_launches["hop_fused"] > 0) == (mode == "spec_in")
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+@pytest.mark.parametrize("mode", ["post", "spec_in", "strict_in"])
+def test_sharded_runner_on_card_equals_unsharded(card_and_cpu_engines, mode,
+                                                 shards):
+    """``ShardedSearchRunner`` over ``local_plan(S, cuda)``: the pipelined
+    driver's result equals the unsharded card run on every field, bit for
+    bit, and the same sharded run on the CPU copy; on the card the shards'
+    hop steps launch ``or_scatter`` (and in spec_in ``hop_fused``)."""
+    from repro_torch.core import distributed as tdist
+    from repro_torch.core import search as tsearch
+    gpu, cpu, ds, qf, ents = card_and_cpu_engines
+    e_arg = ents if mode == "strict_in" else None
+    args = _search_args(gpu, ds, qf, mode)
+    want = tsearch.filtered_search_pipelined(*args, entries=e_arg)
+    runner = tdist.ShardedSearchRunner(
+        tdist.local_plan(shards, gpu.device), gpu.store, gpu.codes,
+        gpu.codebook, gpu.mem)
+    tops.reset_launches()
+    got = tsearch.filtered_search_pipelined(*args, entries=e_arg,
+                                            runner=runner)
+    launches = tops.snapshot()
+    _fields_equal(got, want, f"sharded S={shards} {mode}")
+    cpu_runner = tdist.ShardedSearchRunner(
+        tdist.local_plan(shards, "cpu"), cpu.store, cpu.codes, cpu.codebook,
+        cpu.mem)
+    on_cpu = tsearch.filtered_search_pipelined(
+        *_search_args(cpu, ds, qf, mode), entries=e_arg, runner=cpu_runner)
+    _fields_equal(got, on_cpu, f"sharded S={shards} {mode} card vs CPU")
+    assert launches["or_scatter"] > 0
+    assert (launches["hop_fused"] > 0) == (mode == "spec_in")

@@ -62,7 +62,8 @@ def test_port_imports_no_jax_no_repro():
                 "repro_torch.api.session", "repro_torch.api.types",
                 "repro_torch.serve", "repro_torch.serve.server",
                 "repro_torch.serve.retrieval", "repro_torch.ckpt",
-                "repro_torch.ckpt.checkpoint", "repro_torch.core.faults"}
+                "repro_torch.ckpt.checkpoint", "repro_torch.core.faults",
+                "repro_torch.core.distributed"}
     assert expected <= set(res["modules"]), expected - set(res["modules"])
 
 

@@ -240,11 +240,13 @@ def _same_search(a, b, sels, ds, tag):
 
 
 def test_out_of_scope_paths_raise(port, shared_engine, shared_ds, tmp_path):
-    """Sharding (ROADMAP item 7) raises, naming its item, a custom distance
-    function (item 8a) is accepted and searched with (one call per query
-    row, here equal to the default), and sharding a disk-backend engine or
-    index raises
-    ``repro``'s ValueError. The disk tier (item 6) is ported
+    """Sharding (item 7) is ported (tests/test_torch_distributed.py): here
+    ``shard(2)`` toggles on and off on the shared engine, and a shard count
+    that is not a power of two, the reference builder with shards, and
+    sharding a disk-backend engine or index raise ``repro``'s ValueError. A
+    custom distance function (item 8a) is accepted and searched with (one
+    call per query row, here equal to the default). The disk tier (item 6)
+    is ported
     (tests/test_torch_storage.py): here ``to_disk`` and
     ``attach_disk_store`` work on the CPU on the shared engine's copies, and
     a checkpoint of the JAX package's disk backend loads in the port; all
@@ -253,8 +255,10 @@ def test_out_of_scope_paths_raise(port, shared_engine, shared_ds, tmp_path):
     from repro import api as japi
     from repro_torch import api as tapi
     from repro_torch.storage import DiskRecordStore
-    with pytest.raises(NotImplementedError, match="item 7"):
-        port.shard(2)
+    assert port.shard(2).n_shards == 2
+    assert port.shard(0).n_shards == 1
+    with pytest.raises(ValueError, match="power of two"):
+        port.shard(3)
     # a custom distance is accepted (item 8a): the search runs it
     assert not hasattr(tsearch, "check_distance_fn")
     calls = []
@@ -278,10 +282,9 @@ def test_out_of_scope_paths_raise(port, shared_engine, shared_ds, tmp_path):
     meta = [{"cat": 1}] * 4
     with pytest.raises(ValueError, match="device backend"):
         tapi.Index.build(vecs, meta, store="disk", shards=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tapi.Index.build(vecs, meta, shards=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tapi.Index.load(str(tmp_path / "idx"), shards=2)
+    with pytest.raises(ValueError, match="builder='batched'"):
+        tapi.Index.build(vecs, meta, tapi.IndexConfig(builder="reference"),
+                         shards=2, device="cpu")
 
     sels = t_make_selectors(shared_ds, port, "label")[:8]
     spilled = copy.copy(port).to_disk(str(tmp_path / "slabs"))
