@@ -120,6 +120,28 @@ Phases, each printing one JSON line:
    ``build_vamana_sharded`` at S = 4 with exact navigation on the first
    100,000 rows, element for element ``build_vamana_batched`` on them. ``hop_fused_gather``, ``or_scatter_``
    and ``prune_scan`` must launch.
+11. lm — run after phase 9 and before phase 10 (whose build cut reads the
+   clock): the LM serving path (``repro_torch.models``, ``serve.decode``,
+   ``launch.serve``), float32 checks with TF32 off (PyTorch's default,
+   asserted). ``lm_card_vs_cpu``: each of the ten archs' smoke configs on
+   the card against the CPU with the same weights (logits within 1e-4),
+   and prefill + decode against the forward on the card (within 2e-3) for
+   qwen2-7b, mamba2-2.7b, jamba-v0.1-52b, mixtral-8x22b and mixtral's
+   sliding-window ring. ``lm_full``: qwen2-1.5b (28 layers) and
+   mamba2-2.7b (64 layers) at their published widths, mixtral-8x22b at its
+   widths cut to 2 layers: prefill + decode against the forward in
+   float32 (mixtral drop-free at capacity factor 8, prefilled 5,120 tokens
+   past its 4,096 window), qwen's blockwise attention against full at
+   s = 4,096, and a timed ``launch.serve.main`` run each in the configs'
+   bfloat16 compute (8 requests × 512 prompt tokens × 32 new: prefill
+   seconds, decode ms/token, PyTorch calls a step, the step's bytes
+   bound, peak memory; mixtral's at capacity factor 1.25 with its
+   drop_frac). ``rag``: 16 DSL requests (label, range, hybrid, Tag ∧ Num)
+   through a ``RetrievalFrontend`` on the phase-5 ``Index``, flushed once,
+   every match checked against the source arrays, then greedy
+   ``generate`` of 16 tokens per request on qwen2-1.5b in bfloat16 from
+   prompts built with ``context_tokens`` (one batch per prompt length);
+   the retrieval's launches are phase 11's.
 
 Phase 2 also times ``hop_fused_gather`` at the shard widths B = 32 and 16
 and ``prune_scan`` on 512 and 256 of its 1024 rows (one shard's prune at
@@ -131,7 +153,7 @@ fault plan on both and saves on the card to load on the CPU.
 
 Then a ``kernels`` line (launches of hop_fused, or_scatter and prune_scan
 from phase 4 (each row also lists its launches in every phase, phases 8's,
-9's and 10's included, and the line its ``hop_fused_gather``, ``or_scatter_`` and
+9's, 10's and 11's included, and the line its ``hop_fused_gather``, ``or_scatter_`` and
 ``pq_scan_gather`` calls in phase 8), of pq_scan from phase 5, of approx_probe and l2_rerank from
 phase 6; times from phase 2: hop_fused's of the gathered entry with the slab
 entry's and the shard-width rows beside it, or_scatter's of the in-place
@@ -642,6 +664,7 @@ def dsl_request(api, ds, i: int, kind: str, tag_field: str):
         "label_and": api.And.of(*[tag == lab for lab in labels]),
         "range": num.between(lo, hi),
         "hybrid": tag.isin(labels) | num.between(lo, hi),
+        "tag_and_num": (tag == labels[0]) & num.between(lo, hi),
     }[kind]
     return api.SearchRequest(query=ds.queries[i], filter=filt)
 
@@ -910,19 +933,10 @@ def _check_run(e, ds, sels, scfg, label, ids, stats, lat) -> dict:
 
 
 def torch_ops(fn) -> int:
-    """PyTorch operator calls made by ``fn()``, counted by a dispatch mode;
+    """PyTorch operator calls made by ``fn()`` (``launch.serve``'s count);
     the CUDA kernels, launched through ctypes, come on top."""
-    from torch.utils._python_dispatch import TorchDispatchMode
-    n = [0]
-
-    class Count(TorchDispatchMode):
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            n[0] += 1
-            return func(*args, **(kwargs or {}))
-
-    with Count():
-        fn()
-    return n[0]
+    from repro_torch.launch.serve import torch_ops as count
+    return count(fn)
 
 
 def hop_profile(e, ds, cfg, hops: int = 32) -> dict:
@@ -2152,6 +2166,349 @@ def shard_phase(e, ds, dev, full: dict, t_start: float) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the LM serving path and retrieval-fed generation
+# ---------------------------------------------------------------------------
+
+LM_TOL = 1e-4                   # card against the CPU, float32
+DECODE_TOL = 2e-3               # decode against the forward (as
+                                # tests/test_models_smoke.py holds JAX)
+# the smoke archs whose prefill + decode is held against the forward on the
+# card (tests/test_models_smoke.py's four)
+LM_DECODE_ARCHS = ("qwen2-7b", "mamba2-2.7b", "jamba-v0.1-52b",
+                   "mixtral-8x22b")
+# sizes of the full-width runs: float32 checks (batch, forward length,
+# prefill length, decode steps), the blockwise-attention check's length,
+# the timed runs through launch.serve (requests, prompt, new tokens), the
+# mixtral depth cut, and the RAG requests, their new tokens and the
+# corpus's tokens per document
+LM_SIZES = {"qwen2-1.5b": (2, 64, 48, 16), "mamba2-2.7b": (2, 300, 256, 16),
+            "mixtral-8x22b": (1, 6144, 5120, 8), "blockwise_s": 4096,
+            "serve": (8, 512, 32), "mixtral_repeat": 2,
+            "rag": (16, 16, 24)}
+
+
+def _max_err(label, got, want, tol) -> float:
+    """Max |got − want| (both moved to the CPU as float32); fails past
+    rtol = atol = ``tol``."""
+    import torch
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    assert got.shape == want.shape, f"{label}: shapes differ"
+    assert bool(torch.isfinite(got).all()), f"{label}: not finite"
+    assert torch.allclose(got, want, rtol=tol, atol=tol), \
+        f"{label}: off by {float((got - want).abs().max())}"
+    return float((got - want).abs().max())
+
+
+def _lm_batch(cfg, b: int, s: int, seed: int) -> dict:
+    """tests/test_models_smoke.py's batch as CPU tensors: tokens, or the
+    audio / vision stub frontends' embeddings."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    if cfg.frontend == "audio":
+        return {"frame_embeds": torch.from_numpy(rng.normal(
+            0, 1, (b, s, cfg.d_model)).astype(np.float32))}
+    out = {}
+    if cfg.frontend == "vision":
+        p = cfg.vision_prefix
+        out["patch_embeds"] = torch.from_numpy(rng.normal(
+            0, 1, (b, p, cfg.d_model)).astype(np.float32))
+        s -= p
+    out["tokens"] = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s)))
+    return out
+
+
+def _decode_vs_forward(label, model, cfg, tokens, prefix: int,
+                       steps: int = 0) -> dict:
+    """The forward over all of ``tokens``, then a prefill of
+    ``tokens[:, :prefix]`` and ``steps`` decode steps (all the rest with
+    0): the prefill's last logits and every step's within DECODE_TOL of the
+    forward's at the same position."""
+    from repro_torch.models import lm
+    b, s = tokens.shape
+    steps = steps or s - prefix
+    full, _ = lm.lm_forward(model, cfg, {"tokens": tokens})
+    want = full[:, prefix - 1:prefix + steps].clone()
+    del full
+    logits, caches = lm.lm_prefill(model, cfg, {"tokens": tokens[:, :prefix]},
+                                   prefix + steps + 8)
+    errs = [_max_err(f"{label} prefill", logits[:, 0], want[:, 0],
+                     DECODE_TOL)]
+    for i in range(prefix, prefix + steps):
+        logits, caches = lm.lm_decode_step(model, caches, cfg,
+                                           tokens[:, i:i + 1])
+        errs.append(_max_err(f"{label} decode {i}", logits[:, 0],
+                             want[:, i - prefix + 1], DECODE_TOL))
+    return {"forward_s": s, "prefix": prefix, "steps": steps,
+            "max_abs_err": max(errs)}
+
+
+def lm_card_vs_cpu(dev) -> dict:
+    """Every arch's smoke config on the card and on the CPU with the same
+    weights (forward logits within LM_TOL), and prefill + decode against
+    the forward on the card for LM_DECODE_ARCHS and the sliding-window
+    ring (mixtral, 48 tokens past its window of 32)."""
+    import copy
+    import numpy as np
+    import torch
+    from repro_torch.configs import list_archs, smoke_config
+    from repro_torch.models import lm
+
+    out = {"forward": {}, "decode": {}}
+    for arch in list_archs():
+        cfg = smoke_config(arch)
+        cpu = lm.init_lm(cfg, 0, "cpu")
+        card = copy.deepcopy(cpu).to(dev)
+        batch = _lm_batch(cfg, 2, 32, 0)
+        want, waux = lm.lm_forward(cpu, cfg, batch)
+        got, gaux = lm.lm_forward(card, cfg, {k: v.to(dev)
+                                              for k, v in batch.items()})
+        out["forward"][arch] = _max_err(f"{arch} card vs CPU", got, want,
+                                        LM_TOL)
+        for k in waux:
+            _max_err(f"{arch} {k}", gaux[k], waux[k], LM_TOL)
+        runs = [(24, 16, 2)] if arch in LM_DECODE_ARCHS else []
+        if arch == "mixtral-8x22b":
+            runs.append((48, 40, 1))              # past the window: the ring
+        for s, prefix, b in runs:
+            tokens = torch.from_numpy(np.random.default_rng(3).integers(
+                0, cfg.vocab, (b, s))).to(dev)
+            out["decode"][f"{arch}/s{s}"] = _decode_vs_forward(
+                f"{arch} s={s}", card, cfg, tokens, prefix)
+        del cpu, card
+    return out
+
+
+def _serve_run(dev, arch: str, *extra) -> dict:
+    """One timed ``launch.serve.main`` run at the config's own dtypes."""
+    import torch
+    from repro_torch.launch import serve
+    n_req, prompt, new = LM_SIZES["serve"]
+    torch.cuda.empty_cache()
+    res = serve.main(["--arch", arch, "--requests", str(n_req),
+                      "--prompt-len", str(prompt), "--new-tokens", str(new),
+                      "--device", str(dev), *extra])
+    del res["first_request"]
+    return res
+
+
+def lm_full(dev, index, ds) -> dict:
+    """Three configs at their published widths: float32 checks of prefill
+    + decode against the forward (and of blockwise against full attention
+    for qwen), then timed runs through ``launch.serve.main`` in the
+    configs' bfloat16 compute; the RAG requests run on the qwen model
+    between its check and its timed run."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as A
+    from repro_torch.models import lm
+
+    out = {"reduced": []}
+
+    def f32_check(label, cfg, seed):
+        b, s, prefix, steps = LM_SIZES[label]
+        assert s >= prefix + steps
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        model = lm.init_lm(cfg, 0, dev)
+        tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+            0, cfg.vocab, (b, s))).to(dev)
+        t0 = time.perf_counter()
+        row = _decode_vs_forward(label, model, cfg, tokens, prefix, steps)
+        torch.cuda.synchronize(dev)
+        row.update(seconds=time.perf_counter() - t0, batch=b,
+                   layers=cfg.n_layers, d_model=cfg.d_model,
+                   params=lm.param_count(cfg),
+                   peak_bytes=torch.cuda.max_memory_allocated(dev))
+        return model, row
+
+    # qwen2-1.5b: all 28 layers
+    qcfg = get_config("qwen2-1.5b")
+    model, out["qwen2-1.5b"] = f32_check(
+        "qwen2-1.5b", dataclasses.replace(qcfg, compute_dtype="float32"),
+        1)
+    s = LM_SIZES["blockwise_s"]
+    cfg32 = dataclasses.replace(qcfg, compute_dtype="float32")
+    assert s > cfg32.attn_chunk_threshold
+    x = torch.randn((1, s, cfg32.d_model), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(2))
+    pos = torch.arange(s, device=dev)[None]
+    q, k, v = A._project_qkv(model.segments[0][0][0].attn, x, cfg32, pos)
+    out["qwen2-1.5b"]["blockwise_vs_full"] = {
+        "s": s, "max_abs_err": _max_err(
+            "qwen blockwise vs full", A.blockwise_attention(q, k, v,
+                                                            cfg32),
+            A.full_attention(q, k, v, cfg32), DECODE_TOL)}
+    del x, q, k, v
+    out["rag"] = lm_rag(dev, index, ds, model, qcfg)
+    del model
+    out["qwen2-1.5b"]["serve"] = _serve_run(dev, "qwen2-1.5b")
+
+    # mamba2-2.7b: all 64 layers
+    mcfg = get_config("mamba2-2.7b")
+    model, out["mamba2-2.7b"] = f32_check(
+        "mamba2-2.7b", dataclasses.replace(mcfg, compute_dtype="float32"),
+        3)
+    del model
+    out["mamba2-2.7b"]["serve"] = _serve_run(dev, "mamba2-2.7b")
+
+    # mixtral-8x22b: published widths, depth cut
+    rep = LM_SIZES["mixtral_repeat"]
+    xcfg = get_config("mixtral-8x22b")
+    (full_rep, period), = xcfg.segments
+    xcfg = dataclasses.replace(xcfg, segments=((rep, period),),
+                               n_layers=rep * len(period))
+    out["reduced"].append(
+        f"mixtral-8x22b: {full_rep} -> {rep} layers (the 56 layers' "
+        f"{lm.param_count(get_config('mixtral-8x22b')):,} parameters "
+        f"do not fit on one card)")
+    _, s, prefix, _ = LM_SIZES["mixtral-8x22b"]
+    assert prefix > xcfg.window and prefix % xcfg.attn_chunk_q == 0
+    drop_free = dataclasses.replace(xcfg, compute_dtype="float32",
+                                    moe=dataclasses.replace(
+                                        xcfg.moe, capacity_factor=8.0))
+    model, out["mixtral-8x22b"] = f32_check("mixtral-8x22b", drop_free,
+                                            4)
+    out["mixtral-8x22b"]["capacity_factor"] = 8.0
+    # the share of assignments the timed run's prompts drop at the
+    # published capacity factor: the same weights (seed 0) and prompts
+    # (launch.serve's rng) through the forward, the mean over layers
+    n_req, prompt, _ = LM_SIZES["serve"]
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, xcfg.vocab, (n_req, prompt)).astype(np.int32)).to(dev)
+    _, aux = lm.lm_forward(model, xcfg, {"tokens": prompts})
+    del model, prompts
+    out["mixtral-8x22b"]["serve"] = _serve_run(
+        dev, "mixtral-8x22b", "--max-repeat", str(rep))
+    out["mixtral-8x22b"]["serve"]["drop_frac"] = \
+        float(aux["drop_frac"]) / xcfg.n_layers
+    out["mixtral-8x22b"]["serve"]["capacity_factor"] = \
+        xcfg.moe.capacity_factor
+    return out
+
+
+def lm_rag(dev, index, ds, model, cfg) -> dict:
+    """Retrieval-fed generation on the full-size corpus: LM_SIZES["rag"]
+    DSL requests (label, range, hybrid and Tag ∧ Num filters over the
+    phase-4 queries) admitted to a ``RetrievalFrontend`` on the phase-5
+    ``Index`` and flushed once, every match checked against the source
+    arrays; prompts built with ``context_tokens`` from a seeded (N, 24)
+    token table over the model's vocabulary, and greedy ``generate`` on
+    them, one batch per prompt length, with the model in the config's
+    compute dtype. The kernel launches of the retrieval are returned under
+    ``launches``."""
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch.api.session import SessionConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.serve import RetrievalFrontend, generate
+
+    n_req, n_new, doc_len = LM_SIZES["rag"]
+    nq = ds.queries.shape[0]
+    kinds = ("label", "range", "hybrid", "tag_and_num")
+    reqs = [dsl_request(api, ds, i % nq, kinds[i % 4], "tag")
+            for i in range(n_req)]
+    out = {"requests": n_req, "kinds": kinds}
+    frontend = RetrievalFrontend(index, SessionConfig(
+        max_batch=n_req, max_delay_s=1e9, auto_flush=False))
+    before = ops.snapshot()
+    with entry_calls("hop_fused_gather", "hop_fused", "or_scatter_",
+                     "or_scatter_new", "or_scatter", "pq_scan_gather",
+                     "pq_scan") as calls:
+        t0 = time.perf_counter()
+        handles = [frontend.submit(r.query, r.filter) for r in reqs]
+        assert frontend.flush() == n_req
+        results = [h.result() for h in handles]
+        out["retrieval_s"] = time.perf_counter() - t0
+    after = ops.snapshot()
+    out["launches"] = {k: after[k] - before[k] for k in after}
+    out["entry_calls"] = dict(calls)
+    out["batches"] = frontend.session.n_batches
+    assert out["batches"] == 1, "the requests did not share one flush"
+    assert calls["or_scatter_"] > 0 and out["launches"]["hop_fused"] > 0, \
+        "the retrieval launched no hop kernels"
+    assert calls["hop_fused"] == calls["or_scatter"] == \
+        calls["pq_scan"] == 0, "a slab entry was called in the RAG flow"
+
+    off, flat, vals = ds.label_offsets, ds.label_flat, ds.values
+    n_checked = 0
+    for i, (r, res) in enumerate(zip(reqs, results)):
+        labels = ds.query_labels[i % nq]
+        lo, hi = ds.query_ranges[i % nq]
+        for j, _, _ in res.matches:
+            tags = set(flat[off[j]:off[j + 1]].tolist())
+            in_range = bool(lo <= vals[j] < hi)
+            ok = {"label": labels[0] in tags, "range": in_range,
+                  "hybrid": bool(tags & set(labels)) or in_range,
+                  "tag_and_num": labels[0] in tags and in_range}[
+                      kinds[i % 4]]
+            assert ok, f"RAG request {i}: id {j} outside its filter"
+            n_checked += 1
+    out["matches"] = n_checked
+    out["matches_by_kind"] = {
+        kind: sum(len(results[i].matches) for i in range(n_req)
+                  if kinds[i % 4] == kind) for kind in kinds}
+    out["mechanisms"] = dict(collections.Counter(
+        res.stats.mechanism for res in results))
+
+    rng = np.random.default_rng(5)
+    docs = rng.integers(0, cfg.vocab, (ds.vectors.shape[0], doc_len),
+                        dtype=np.int32)
+    questions = rng.integers(0, cfg.vocab, (n_req, 8), dtype=np.int32)
+    prompts = [np.concatenate([RetrievalFrontend.context_tokens(
+        res, docs, per_doc=8), questions[i]]).astype(np.int32)
+        for i, res in enumerate(results)]
+    # one generate call per prompt length (requests with fewer matches
+    # have shorter prompts): the batch a server would form
+    groups = collections.defaultdict(list)
+    for i, p in enumerate(prompts):
+        groups[len(p)].append(i)
+    serving = lm.cast_for_compute(model)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    tokens = [None] * n_req
+    for idx in groups.values():
+        toks = generate(serving, cfg, np.stack([prompts[i] for i in idx]),
+                        n_new).cpu()
+        assert toks.shape == (len(idx), n_new)
+        assert bool(((toks >= 0) & (toks < cfg.vocab)).all())
+        for i, row in zip(idx, toks.tolist()):
+            tokens[i] = row
+    out["generate_s"] = time.perf_counter() - t0
+    out.update(new_tokens=n_new, compute_dtype=cfg.compute_dtype,
+               prompt_lens={n: len(idx) for n, idx in groups.items()},
+               first_tokens=tokens[0])
+    del serving
+    return out
+
+
+def lm_phase(dev, index, ds) -> dict:
+    """Phase 11: the LM serving path on the card. Nothing here is caught: a
+    failed check fails the run."""
+    import torch
+    assert torch.backends.cuda.matmul.allow_tf32 is False, \
+        "float32 checks need TF32 off (PyTorch's default)"
+    out = {}
+    t0 = time.perf_counter()
+    out["card_vs_cpu"] = lm_card_vs_cpu(dev)
+    out["card_vs_cpu"]["seconds"] = time.perf_counter() - t0
+    emit({"phase": "lm_card_vs_cpu", **out["card_vs_cpu"]})
+    t0 = time.perf_counter()
+    full = lm_full(dev, index, ds)
+    out["rag"] = full.pop("rag")
+    emit({"phase": "rag", **out["rag"]})
+    out["full"] = full
+    out["full"]["seconds"] = time.perf_counter() - t0
+    emit({"phase": "lm_full", **out["full"]})
+    out["launches"] = out["rag"]["launches"]
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 KERNELS = {
     "hop_fused": ("hop_fused/gather",
@@ -2256,6 +2613,14 @@ def main(argv=None) -> int:
     emit({"phase": "oracles", "seconds": oracles["seconds"],
           "launches": oracles["launches"]})
 
+    # phase 11 runs before phase 10, whose build cut reads the clock, on
+    # the phase-5 Index as phase 4 built its engine
+    t0 = time.perf_counter()
+    lmr = lm_phase(dev, index, ds)
+    lmr["seconds"] = time.perf_counter() - t0
+    emit({"phase": "lm", "seconds": lmr["seconds"],
+          "launches": lmr["launches"]})
+
     # phase 10 too runs on the engine as phase 4 built it
     t0 = time.perf_counter()
     shard = shard_phase(e, ds, dev, full, t_start)
@@ -2277,7 +2642,8 @@ def main(argv=None) -> int:
 
     launches = {"full": full["launches"], "serve": serve["launches"],
                 "ops": opsr["launches"], "disk": disk["launches"],
-                "oracles": oracles["launches"], "shard": shard["launches"]}
+                "oracles": oracles["launches"], "shard": shard["launches"],
+                "lm": lmr["launches"]}
     rows = []
     for name, (key, source, replaces) in KERNELS.items():
         count = launches[LAUNCH_PHASE[name]][name]
@@ -2305,7 +2671,7 @@ def main(argv=None) -> int:
           "ops_phase_s": opsr["seconds"], "lifecycle_phase_s": life["seconds"],
           "disk_phase_s": disk["seconds"],
           "oracle_phase_s": oracles["seconds"],
-          "shard_phase_s": shard["seconds"],
+          "shard_phase_s": shard["seconds"], "lm_phase_s": lmr["seconds"],
           "shard_build_cut": shard["build"]["cut"],
           "oracle_pq_scan_launches_per_hop_step":
               oracles["distance_fn"]["pq_scan_launches_per_hop_step"],

@@ -570,3 +570,39 @@ def test_sharded_runner_on_card_equals_unsharded(card_and_cpu_engines, mode,
     _fields_equal(got, on_cpu, f"sharded S={shards} {mode} card vs CPU")
     assert launches["or_scatter"] > 0
     assert (launches["hop_fused"] > 0) == (mode == "spec_in")
+
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "mixtral-8x22b"])
+def test_lm_forward_and_decode_card_matches_cpu(cuda, arch):
+    """The LM's smoke config on the card and on the CPU with the same
+    weights: forward logits and aux losses, then a prefill of 16 tokens
+    and 8 decode steps (mixtral: 40 and 8, past its window of 32), each
+    step's logits within 1e-4 of the CPU's (float32, TF32 off)."""
+    import copy
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import lm
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    cfg = smoke_config(arch)
+    cpu = lm.init_lm(cfg, seed=0, device="cpu")
+    card = copy.deepcopy(cpu).to(cuda)
+    s, prefix = (48, 40) if arch == "mixtral-8x22b" else (24, 16)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, s)))
+
+    def close(got, want):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+    want, waux = lm.lm_forward(cpu, cfg, {"tokens": tokens})
+    got, gaux = lm.lm_forward(card, cfg, {"tokens": tokens.to(cuda)})
+    close(got, want)
+    for k in waux:
+        close(gaux[k], waux[k])
+    wl, wc = lm.lm_prefill(cpu, cfg, {"tokens": tokens[:, :prefix]}, s + 8)
+    gl, gc = lm.lm_prefill(card, cfg, {"tokens": tokens[:, :prefix].to(cuda)},
+                           s + 8)
+    close(gl, wl)
+    for i in range(prefix, s):
+        wl, wc = lm.lm_decode_step(cpu, wc, cfg, tokens[:, i:i + 1])
+        gl, gc = lm.lm_decode_step(card, gc, cfg,
+                                   tokens[:, i:i + 1].to(cuda))
+        close(gl, wl)

@@ -63,7 +63,14 @@ def test_port_imports_no_jax_no_repro():
                 "repro_torch.serve", "repro_torch.serve.server",
                 "repro_torch.serve.retrieval", "repro_torch.ckpt",
                 "repro_torch.ckpt.checkpoint", "repro_torch.core.faults",
-                "repro_torch.core.distributed"}
+                "repro_torch.core.distributed", "repro_torch.models",
+                "repro_torch.models.common", "repro_torch.models.attention",
+                "repro_torch.models.mlp", "repro_torch.models.moe",
+                "repro_torch.models.ssm", "repro_torch.models.blocks",
+                "repro_torch.models.lm", "repro_torch.models.convert",
+                "repro_torch.configs", "repro_torch.configs.registry",
+                "repro_torch.serve.decode", "repro_torch.launch",
+                "repro_torch.launch.serve"}
     assert expected <= set(res["modules"]), expected - set(res["modules"])
 
 
