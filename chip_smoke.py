@@ -142,6 +142,24 @@ Phases, each printing one JSON line:
    ``generate`` of 16 tokens per request on qwen2-1.5b in bfloat16 from
    prompts built with ``context_tokens`` (one batch per prompt length);
    the retrieval's launches are phase 11's.
+12. train — after phase 11, before phase 10: the LM training path
+   (``repro_torch.train``, ``data.tokens``/``pipeline``,
+   ``launch.train``), float32 checks with TF32 off.
+   ``train_card_vs_cpu``: qwen2-1.5b, mamba2-2.7b and mixtral-8x22b smoke
+   configs from the same weights, card against CPU: loss and every
+   gradient leaf, and the parameters after one AdamW step with float32 and
+   with int8 moments (within 1e-4); ``compressed_psum_grads`` at S = 4,
+   threefry draws and sampled ``generate`` equal to the CPU's.
+   ``train_full``: ``launch.train.main`` on qwen2-1.5b at its published
+   widths (float32 parameters, bfloat16 compute, remat), 4 × 512 tokens a
+   step, 8 steps, no save: losses finite and falling, step seconds
+   (median from the second step), tokens/s, PyTorch calls a step (counted
+   on the CPU at the real depth and tiny widths), peak memory, and the
+   step's bound 8 · params · tokens at 989 TFLOP/s. ``train_resume``: 6
+   smoke-width steps with a checkpoint every 2 and step 5 failing once
+   end with the parameters of an uninterrupted run, and the step-4
+   checkpoint restores into a fresh model. Its launches (none: no kernel
+   lies on this path) are counted as phase 12's.
 
 Phase 2 also times ``hop_fused_gather`` at the shard widths B = 32 and 16
 and ``prune_scan`` on 512 and 256 of its 1024 rows (one shard's prune at
@@ -153,7 +171,7 @@ fault plan on both and saves on the card to load on the CPU.
 
 Then a ``kernels`` line (launches of hop_fused, or_scatter and prune_scan
 from phase 4 (each row also lists its launches in every phase, phases 8's,
-9's, 10's and 11's included, and the line its ``hop_fused_gather``, ``or_scatter_`` and
+9's, 10's, 11's and 12's included, and the line its ``hop_fused_gather``, ``or_scatter_`` and
 ``pq_scan_gather`` calls in phase 8), of pq_scan from phase 5, of approx_probe and l2_rerank from
 phase 6; times from phase 2: hop_fused's of the gathered entry with the slab
 entry's and the shard-width rows beside it, or_scatter's of the in-place
@@ -2509,6 +2527,267 @@ def lm_phase(dev, index, ds) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 12: the LM training path
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCHS = ("qwen2-1.5b", "mamba2-2.7b", "mixtral-8x22b")
+# the full-width run (batch, sequence, steps) and the resume drill (steps,
+# checkpoint interval, the step that fails once, batch, sequence)
+TRAIN_SIZES = {"full": (4, 512, 8), "resume": (6, 2, 5, 4, 64)}
+TRAIN_DIR = ROOT / "build" / "smoke_train"
+# the card-vs-CPU AdamW step at launch.train's settings (first-step lr
+# 1e-4): a first step maps each gradient g to about lr · g / (|g| + eps),
+# so a gradient of ~1e-8 that the card computes 5e-10 off moves its
+# parameter by ~0.013 lr (at lr 1e-2, 1.3e-4: past the 1e-4 bar)
+TRAIN_OPT = {"lr": 1e-3, "warmup_steps": 10}
+BF16_RATE = "989 TFLOP/s, H100 SXM dense bfloat16 (data sheet)"
+
+
+def _same_params(label, a, b) -> None:
+    import torch
+    for (name, p), (_, q) in zip(a.named_parameters(), b.named_parameters(),
+                                 strict=True):
+        assert torch.equal(p.detach().cpu(), q.detach().cpu()), \
+            f"{label}: {name} differs"
+
+
+def train_card_vs_cpu(dev) -> dict:
+    """Smoke widths, float32, TF32 off: loss and every gradient leaf of
+    TRAIN_ARCHS, and the parameters after one AdamW step with float32 and
+    with int8 moments, card against CPU from the same weights (within
+    LM_TOL); ``compressed_psum_grads`` at S = 4 over two rounds of error
+    feedback, threefry keys, bits, uniform, gumbel and categorical draws,
+    and sampled ``generate`` on qwen2-1.5b, each equal to the CPU's."""
+    import copy
+    import numpy as np
+    import torch
+    from repro_torch import random as R
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.tokens import lm_batch
+    from repro_torch.models import lm
+    from repro_torch.serve import generate
+    from repro_torch.train import grad_compress, optim, train_loop
+
+    out = {}
+    qwen_grads = None
+    for arch in TRAIN_ARCHS:
+        cfg = smoke_config(arch)
+        cpu = lm.init_lm(cfg, 0, "cpu")
+        batch = lm_batch(cfg, 4, 32, 0)
+        wl, _, wg = train_loop.loss_and_grads(cpu, cfg, batch)
+        gl, _, gg = train_loop.loss_and_grads(copy.deepcopy(cpu).to(dev),
+                                              cfg, batch)
+        row = {"loss": float(wl), "loss_err": _max_err(
+            f"{arch} loss", gl, wl, LM_TOL), "grad_leaves": len(wg),
+            "grads_err": max(_max_err(f"{arch} grad {k}", gg[k], wg[k],
+                                      LM_TOL) for k in wg)}
+        for int8 in (False, True):
+            ocfg = optim.OptConfig(**TRAIN_OPT, int8_moments=int8)
+            stepped = []
+            for model in (copy.deepcopy(cpu), copy.deepcopy(cpu).to(dev)):
+                step = train_loop.make_train_step(cfg, ocfg)
+                model, _, _ = step(model, optim.init_opt_state(model, ocfg),
+                                   batch)
+                stepped.append(model)
+            row["step_int8_err" if int8 else "step_f32_err"] = max(
+                _max_err(f"{arch} step {n}", q, p, LM_TOL)
+                for (n, p), (_, q) in zip(stepped[0].named_parameters(),
+                                          stepped[1].named_parameters()))
+        out[arch] = row
+        if arch == "qwen2-1.5b":
+            qwen_grads = wg
+        del cpu, stepped
+
+    # the int8 error-feedback reduction over 4 shards, the same inputs
+    factors = (1.0, -0.5, 2.0, 0.25)
+    cpu_g = [{k: g * f for k, g in qwen_grads.items()} for f in factors]
+    card_g = [{k: g.to(dev) for k, g in t.items()} for t in cpu_g]
+    e_cpu = [grad_compress.init_error_feedback(t) for t in cpu_g]
+    e_card = [grad_compress.init_error_feedback(t) for t in card_g]
+    for _ in range(2):
+        m_cpu, e_cpu = grad_compress.compressed_psum_grads(cpu_g, e_cpu)
+        m_card, e_card = grad_compress.compressed_psum_grads(card_g, e_card)
+        for k in m_cpu:
+            assert torch.equal(m_card[k].cpu(), m_cpu[k]), f"psum mean {k}"
+            for s in range(len(factors)):
+                assert torch.equal(e_card[s][k].cpu(), e_cpu[s][k]), \
+                    f"psum error feedback {s} {k}"
+    out["compressed_psum"] = {"shards": len(factors), "rounds": 2,
+                              "leaves": len(m_cpu), "equal": True}
+
+    # threefry draws
+    draws = {}
+    for where in ("cpu", dev):
+        key = R.PRNGKey(7, device=where)
+        logits = torch.from_numpy(np.random.default_rng(7).normal(
+            0, 3, (4, 151936)).astype(np.float32)).to(where)
+        draws[str(where)] = {
+            "split": R.split(key, 5), "bits": R.random_bits(key, (3, 1000)),
+            "uniform": R.uniform(key, (3, 1000), -2.5, 3.7),
+            "gumbel": R.gumbel(key, (4, 151936)),
+            "categorical": R.categorical(key, logits)}
+    for name, want in draws["cpu"].items():
+        assert torch.equal(draws[str(dev)][name].cpu(), want), \
+            f"threefry {name}: card differs"
+    out["threefry"] = {"draws": sorted(draws["cpu"]), "equal": True}
+
+    cfg = smoke_config("qwen2-1.5b")
+    cpu = lm.init_lm(cfg, 0, "cpu")
+    prompts = np.random.default_rng(11).integers(0, cfg.vocab, (3, 20))
+    want = generate(cpu, cfg, prompts, 12, temperature=1.0, seed=11)
+    got = generate(copy.deepcopy(cpu).to(dev), cfg, prompts, 12,
+                   temperature=1.0, seed=11).cpu()
+    assert torch.equal(got, want), "sampled generate: card differs"
+    assert not torch.equal(want, generate(cpu, cfg, prompts, 12))
+    out["sampled_generate"] = {"tokens": list(want.shape), "equal": True}
+    return out
+
+
+def _profile_step(fn, dev) -> dict:
+    """One call of ``fn`` under ``torch.profiler`` (CPU and CUDA
+    activities): wall seconds, the device's busy time (the sum of the
+    CUDA kernels' self time), its idle share, and the kernel count."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    return {"wall_s": wall, "device_busy_s": busy,
+            "idle_share": 1.0 - busy / wall,
+            "kernel_launches": sum(e.count for e in kernels),
+            "top_kernels_ms": [
+                [e.key[:100], e.count, e.self_device_time_total / 1e3]
+                for e in sorted(kernels, key=lambda e:
+                                -e.self_device_time_total)[:8]]}
+
+
+def train_full(dev) -> dict:
+    """``launch.train.main`` on qwen2-1.5b at its published widths (float32
+    parameters, bfloat16 compute, remat on), TRAIN_SIZES["full"], no save:
+    finite losses that fall, step seconds, tokens/s, PyTorch calls a step
+    (counted on the CPU at the real depth and tiny widths), peak memory and
+    the step's bound at BF16_RATE; then one more step under
+    ``torch.profiler`` for the device's busy time and idle share."""
+    import math
+    import shutil
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+
+    cfg = get_config("qwen2-1.5b")
+    assert (cfg.param_dtype, cfg.compute_dtype, cfg.remat) == \
+        ("float32", "bfloat16", True)
+    b, s, steps = TRAIN_SIZES["full"]
+    ckpt = TRAIN_DIR / "full"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    res = train.main(["--arch", "qwen2-1.5b", "--steps", str(steps),
+                      "--batch", str(b), "--seq", str(s), "--ckpt-dir",
+                      str(ckpt), "--ckpt-every", str(steps + 1),
+                      "--device", str(dev)])
+    model, opt = res.pop("params_module"), res.pop("opt_state")
+    from repro_torch.data.tokens import lm_batch
+    from repro_torch.train import OptConfig, make_train_step
+    step = make_train_step(cfg, OptConfig(lr=1e-3, warmup_steps=10,
+                                          total_steps=steps))
+    batch = lm_batch(cfg, b, s, steps)
+    res["profiled_step"] = _profile_step(lambda: step(model, opt, batch),
+                                         dev)
+    del model, opt, step
+    torch.cuda.empty_cache()
+    losses = res["losses"]
+    assert len(losses) == steps and all(math.isfinite(x) for x in losses), \
+        f"train_full: losses {losses}"
+    assert losses[-1] < losses[0], f"train_full: loss did not fall {losses}"
+    assert not list(ckpt.glob("step_*")), "train_full saved a checkpoint"
+    res.update(torch_ops_per_step=train.count_step_ops(cfg, b, s),
+               loss_first=losses[0], loss_last=losses[-1],
+               bound_rate=BF16_RATE, d_model=cfg.d_model,
+               vocab=cfg.vocab)
+    return res
+
+
+def train_resume(dev) -> dict:
+    """Smoke width on the card: a run of TRAIN_SIZES["resume"] steps whose
+    step after the step-4 checkpoint fails once ends with the parameters
+    of an uninterrupted run, and its latest checkpoint restores through
+    ``CheckpointManager`` into a fresh model equal to the uninterrupted
+    run's checkpoint of the same step."""
+    import shutil
+    from repro_torch.ckpt import ArraySpec, CheckpointManager
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.train import OptConfig, init_opt_state
+    from repro_torch.train.train_loop import load_train_state, \
+        train_state_tree
+    from repro_torch.utils.tree import tree_flatten_with_path, tree_map
+
+    steps, every, fail, b, s = TRAIN_SIZES["resume"]
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    common = ["--arch", "qwen2-1.5b", "--smoke", "--steps", str(steps),
+              "--ckpt-every", str(every), "--batch", str(b), "--seq",
+              str(s), "--device", str(dev)]
+    whole = train.main(common + ["--ckpt-dir", str(TRAIN_DIR / "whole")])
+    drill = train.main(common + ["--ckpt-dir", str(TRAIN_DIR / "drill"),
+                                 "--fail-at-step", str(fail)])
+    assert drill["retries"] == 1 and drill["final_step"] == steps
+    assert drill["losses"] == whole["losses"], "resumed losses differ"
+    _same_params("resume", drill["params_module"], whole["params_module"])
+
+    cfg = smoke_config("qwen2-1.5b")
+    fresh = lm.init_lm(cfg, 5, dev)
+    opt = init_opt_state(fresh, OptConfig())
+    target = tree_map(lambda x: ArraySpec(x.shape, x.dtype),
+                      train_state_tree(cfg, fresh, opt))
+    saved, tree = CheckpointManager(str(TRAIN_DIR / "drill")).restore(target)
+    opt = load_train_state(cfg, tree, fresh, opt)
+    assert saved == fail - 1 and int(opt.step) == fail
+    _, want = CheckpointManager(str(TRAIN_DIR / "whole")).restore(
+        target, step=saved)
+    got = train_state_tree(cfg, fresh, opt)
+    for (path, x), (_, y) in zip(tree_flatten_with_path(got),
+                                 tree_flatten_with_path(want), strict=True):
+        assert (x == y).all(), f"restored {path} differs"
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    return {"steps": steps, "ckpt_every": every, "failed_at": fail,
+            "restored_step": saved, "resumed_at_step": int(opt.step),
+            "losses": whole["losses"], "params_equal": True,
+            "restored_equal": True}
+
+
+def train_phase(dev) -> dict:
+    """Phase 12: the LM training path on the card. Nothing here is caught:
+    a failed check fails the run. No kernel lies on this path; its
+    launches are counted all the same."""
+    import torch
+    from repro_torch.kernels import ops
+    assert torch.backends.cuda.matmul.allow_tf32 is False, \
+        "float32 checks need TF32 off (PyTorch's default)"
+    torch.cuda.empty_cache()
+    before = ops.snapshot()
+    out = {}
+    for name, fn in (("train_card_vs_cpu", train_card_vs_cpu),
+                     ("train_full", train_full),
+                     ("train_resume", train_resume)):
+        t0 = time.perf_counter()
+        out[name] = fn(dev)
+        out[name]["seconds"] = time.perf_counter() - t0
+        emit({"phase": name, **out[name]})
+    after = ops.snapshot()
+    out["launches"] = {k: after[k] - before[k] for k in after}
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 KERNELS = {
     "hop_fused": ("hop_fused/gather",
@@ -2621,6 +2900,13 @@ def main(argv=None) -> int:
     emit({"phase": "lm", "seconds": lmr["seconds"],
           "launches": lmr["launches"]})
 
+    # phase 12 too runs before phase 10
+    t0 = time.perf_counter()
+    trn = train_phase(dev)
+    trn["seconds"] = time.perf_counter() - t0
+    emit({"phase": "train", "seconds": trn["seconds"],
+          "launches": trn["launches"]})
+
     # phase 10 too runs on the engine as phase 4 built it
     t0 = time.perf_counter()
     shard = shard_phase(e, ds, dev, full, t_start)
@@ -2643,7 +2929,7 @@ def main(argv=None) -> int:
     launches = {"full": full["launches"], "serve": serve["launches"],
                 "ops": opsr["launches"], "disk": disk["launches"],
                 "oracles": oracles["launches"], "shard": shard["launches"],
-                "lm": lmr["launches"]}
+                "lm": lmr["launches"], "train": trn["launches"]}
     rows = []
     for name, (key, source, replaces) in KERNELS.items():
         count = launches[LAUNCH_PHASE[name]][name]
@@ -2672,6 +2958,7 @@ def main(argv=None) -> int:
           "disk_phase_s": disk["seconds"],
           "oracle_phase_s": oracles["seconds"],
           "shard_phase_s": shard["seconds"], "lm_phase_s": lmr["seconds"],
+          "train_phase_s": trn["seconds"],
           "shard_build_cut": shard["build"]["cut"],
           "oracle_pq_scan_launches_per_hop_step":
               oracles["distance_fn"]["pq_scan_launches_per_hop_step"],

@@ -8,9 +8,14 @@ package restores in the other. Layout of one step:
 * ``step_K/manifest.json`` — ``{"step": K, "leaves": [{"index", "path",
   "file", "shape", "dtype", "sha256"}, ...]}``.
 
-A tree is a dict of arrays or of such dicts. Leaves are numbered in
-``jax.tree_util``'s flattening order (dict keys sorted, depth first) and
-``path`` is the leaf's ``keystr`` (``"['ls_blooms']"``, ``"['b']['c']"``).
+A tree is a dict, tuple, list or ``NamedTuple`` of trees, ``None`` (no
+leaf) or an array leaf (``utils.tree``). Leaves are numbered in
+``jax.tree_util``'s flattening order (dict keys sorted, fields in order,
+depth first; a ``NamedTuple``'s ``tree_aux`` fields, as ``Q8.last``, are
+static data and not leaves) and ``path`` is the leaf's ``keystr``
+(``"['ls_blooms']"``, ``"['opt'].m['segments'][0][0]['attn'].wq.q"``), so
+the training state of ``launch.train`` checkpoints as the JAX launcher's
+does.
 
 * writes go to ``step_K.tmp`` and are published by one atomic
   ``os.rename``, so a crash mid-save never corrupts the latest step;
@@ -43,6 +48,8 @@ from typing import Any, Optional
 
 import numpy as np
 
+from repro_torch.utils.tree import tree_flatten_with_path, tree_unflatten
+
 _DIGEST_CHUNK = 1 << 20        # stream checksums in 1 MB chunks
 
 
@@ -72,22 +79,9 @@ def file_digest(path: str, algo: str = "sha256") -> str:
     return h.hexdigest()
 
 
-def _flatten(tree, prefix: str = "") -> list:
+def _flatten(tree) -> list:
     """``[(keystr path, leaf), ...]`` in ``jax.tree_util``'s order."""
-    if isinstance(tree, dict):
-        out = []
-        for k in sorted(tree):
-            out += _flatten(tree[k], f"{prefix}[{k!r}]")
-        return out
-    return [(prefix, tree)]
-
-
-def _unflatten(tree, leaves: list):
-    """``tree``'s structure with its leaves replaced, in flattening order,
-    by the items of ``leaves`` (consumed from the front)."""
-    if isinstance(tree, dict):
-        return {k: _unflatten(tree[k], leaves) for k in sorted(tree)}
-    return leaves.pop(0)
+    return tree_flatten_with_path(tree)
 
 
 def _to_host(leaf) -> np.ndarray:
@@ -112,7 +106,7 @@ class _AsyncWriter(threading.Thread):
             self.exc = e
 
 
-def save(ckpt_dir: str, step: int, tree: dict, async_write: bool = False,
+def save(ckpt_dir: str, step: int, tree: Any, async_write: bool = False,
          keep_last: int = 3, injector=None) -> Optional[_AsyncWriter]:
     """Save a tree of arrays (numpy, torch tensors, scalars) as step
     ``step``. Returns the writer thread if async.
@@ -260,7 +254,7 @@ def restore(ckpt_dir: str, step: int, target_tree: Any,
             raise CheckpointCorruptionError(
                 f"{meta['path']}: dtype {arr.dtype} vs target {tgt.dtype}")
         out.append(arr)
-    return _unflatten(target_tree, out)
+    return tree_unflatten(target_tree, out)
 
 
 class CheckpointManager:

@@ -56,6 +56,21 @@ def build_blooms(label_offsets: np.ndarray, label_flat: np.ndarray,
     return blooms
 
 
+def bloom_pass(blooms, required_mask):
+    """Vectorized probe: True where all required bits are present.
+
+    ``blooms``: (N,) words (uint32 numpy, or the int32 tensor view the
+    device tiers hold); ``required_mask``: a scalar or broadcastable mask
+    of the same width. A mask of 0 means no bloom constraint: all pass.
+    Returns a numpy bool array for numpy input, a bool tensor for a
+    tensor."""
+    req = np.asarray(required_mask, np.uint32)
+    if hasattr(blooms, "new_tensor"):          # a tensor of int32 words
+        req = blooms.new_tensor(req.view(np.int32))
+        return (blooms & req) == req
+    return (np.asarray(blooms, np.uint32) & req) == req
+
+
 def bloom_fp_rate(avg_labels_per_vec: float, k_hashes: int = 2,
                   m_bits: int = BLOOM_BITS, n_query_labels: int = 1) -> float:
     """Analytic false-positive rate (paper §4.3.1 precision estimation).

@@ -76,8 +76,12 @@ def candidate_first_mask(neighbors: torch.Tensor,
 
 
 def make_record_store(vectors, neighbors, dense_neighbors, rec_labels,
-                      rec_values, device) -> RecordStore:
-    """Host or device arrays in, a RecordStore of tensors on ``device`` out."""
+                      rec_values, device, vec_dtype_size: int = 4) \
+        -> RecordStore:
+    """Host or device arrays in, a RecordStore of tensors on ``device`` out.
+    The vectors are held in float32 whatever their source; the page counts
+    are figured for vectors of ``vec_dtype_size`` bytes an element, as the
+    slab would store them."""
     def dev(x, dtype):
         return torch.as_tensor(x, dtype=dtype).to(device).contiguous()
 
@@ -91,11 +95,10 @@ def make_record_store(vectors, neighbors, dense_neighbors, rec_labels,
     n, d = vectors.shape
     ml = rec_labels.shape[1]
     n_fields = rec_values.shape[1]
-    vec_bytes = vectors.element_size()
-    pages_std = io_sim.record_pages(d, vec_bytes, neighbors.shape[1], ml,
-                                    n_fields)
+    pages_std = io_sim.record_pages(d, vec_dtype_size, neighbors.shape[1],
+                                    ml, n_fields)
     pages_dense = io_sim.record_pages(
-        d, vec_bytes, neighbors.shape[1] + dense_neighbors.shape[1], ml,
+        d, vec_dtype_size, neighbors.shape[1] + dense_neighbors.shape[1], ml,
         n_fields)
     return RecordStore(vectors, neighbors, dense_neighbors, rec_labels,
                        rec_values, pages_std, pages_dense,

@@ -184,6 +184,18 @@ def merged_membership(qf: QueryFilter, ids: torch.Tensor) -> torch.Tensor:
             & (pos < qf.merged_len[:, None]))
 
 
+def merged_table(qf: QueryFilter, n_ids: int) -> torch.Tensor:
+    """Batched rare-list membership as a per-query bool table: ``(B,
+    n_ids+1)``, row b true at the ids in ``qf.merged_ids[b]``; pad ids
+    (INT_PAD) clip into the sentinel column ``n_ids``. One byte per id per
+    query: the readable oracle of :func:`merged_table_words`, the packed
+    form the search loop carries."""
+    ids = qf.merged_ids.clamp(max=n_ids).long()
+    table = torch.zeros((ids.shape[0], n_ids + 1), dtype=torch.bool,
+                        device=ids.device)
+    return table.scatter_(1, ids, True)
+
+
 def merged_table_words(qf: QueryFilter, n_ids: int) -> torch.Tensor:
     """Batched rare-list membership as per-query bitmaps, 32 ids per int32
     word: ``(B, ceil((n_ids+1)/32))``, bit i of row b set iff id i is in

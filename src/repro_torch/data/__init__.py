@@ -1,1 +1,3 @@
-"""Synthetic filtered-ANNS datasets (numpy, same RNG stream as ``repro``)."""
+"""Synthetic data: filtered-ANNS datasets (numpy, same RNG stream as
+``repro``), the motif token stream of the LM trainer and its host
+prefetcher."""

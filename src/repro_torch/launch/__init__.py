@@ -1,2 +1,3 @@
-"""Launchers of the port: ``python -m repro_torch.launch.serve``.
-Counterpart of ``repro.launch``'s serving entry point."""
+"""Launchers of the port: ``python -m repro_torch.launch.serve`` and
+``python -m repro_torch.launch.train``. Counterpart of ``repro.launch``'s
+serving and training entry points."""

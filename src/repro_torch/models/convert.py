@@ -6,10 +6,17 @@ period's blocks of dicts (``ln1``, ``attn``/``ssm``, ``ln2``, ``mlp``,
 ``moe``) whose leaves are stacked under a leading ``repeat`` dim, the layer
 parts being ``NamedTuple``s (``None`` for absent biases). Pass it through
 ``jax.tree_util.tree_map(np.asarray, params)`` and into
-:func:`lm_from_numpy`. Its decode caches (``lm_prefill``/``init_caches``)
-have the same segment/period/``repeat`` layout.
+:func:`lm_from_numpy`; :func:`lm_to_numpy` goes the other way. Its decode
+caches (``lm_prefill``/``init_caches``) have the same
+segment/period/``repeat`` layout.
+
+:func:`to_repro_tree` and :func:`from_repro_tree` map any leaves keyed by
+the port's parameter names (gradients, optimizer moments) to and from that
+layout, so a training state is laid out as the JAX package's.
 """
 from __future__ import annotations
+
+import collections
 
 import numpy as np
 import torch
@@ -26,6 +33,9 @@ from repro_torch.models.lm import TransformerLM
 _GROUPS = {"attn": A.AttnParams, "ssm": S.SSMParams, "mlp": M.MLPParams,
            "moe": MOE.MoEParams}
 _CACHES = {"attn": A.KVCache, "ssm": S.SSMState}
+# the JAX package's NamedTuple of each layer part, by its field names
+_TUPLES = {name: collections.namedtuple(cls.__name__, cls.FIELDS)
+           for name, cls in _GROUPS.items()}
 
 
 def to_tensor(a, device) -> torch.Tensor:
@@ -102,3 +112,95 @@ def caches_to_numpy(cfg: ModelConfig, caches: list) -> list:
             seg.append(entry)
         out.append(tuple(seg))
     return out
+
+
+def _parts(kind: str) -> tuple:
+    """The layer parts a block kind holds, as ``blocks.init_block``."""
+    parts = ("attn",) if kind in blocks.ATTN_KINDS else ("ssm",)
+    if kind in ("attn_mlp", "mamba_mlp", "arctic"):
+        parts += ("mlp",)
+    if kind in ("attn_moe", "mamba_moe", "arctic"):
+        parts += ("moe",)
+    return parts
+
+
+def _stack(xs: list):
+    """Leaves of one segment's layers stacked under a leading ``repeat``
+    dim: tensors, arrays, or ``NamedTuple`` leaves with ``tree_aux``
+    fields (``train.optim.Q8``), whose array fields stack field by field
+    (exact for Q8: its blocks run along the last dim)."""
+    x0 = xs[0]
+    aux = getattr(type(x0), "tree_aux", None)
+    if aux is not None:
+        return type(x0)(**{f: getattr(x0, f) if f in aux
+                           else _stack([getattr(x, f) for x in xs])
+                           for f in x0._fields})
+    if isinstance(x0, torch.Tensor):
+        return torch.stack(xs)
+    return np.stack(xs)
+
+
+def _take(x, r: int):
+    """Row ``r`` of a stacked leaf (the inverse of :func:`_stack`)."""
+    aux = getattr(type(x), "tree_aux", None)
+    if aux is not None:
+        return type(x)(**{f: getattr(x, f) if f in aux
+                          else getattr(x, f)[r] for f in x._fields})
+    return x[r]
+
+
+def to_repro_tree(cfg: ModelConfig, named: dict) -> dict:
+    """Leaves keyed by the port's parameter names (``named_parameters()``
+    of a :class:`TransformerLM`) in the JAX package's params layout."""
+    out = {"embed": named["embed"], "final_norm": named["final_norm"],
+           "segments": []}
+    if "lm_head" in named:
+        out["lm_head"] = named["lm_head"]
+    for i, (repeat, period) in enumerate(cfg.segments):
+        seg = []
+        for j, kind in enumerate(period):
+            def stacked(suffix, i=i, j=j, repeat=repeat):
+                if f"segments.{i}.0.{j}.{suffix}" not in named:
+                    return None
+                return _stack([named[f"segments.{i}.{r}.{j}.{suffix}"]
+                               for r in range(repeat)])
+
+            block = {"ln1": stacked("ln1")}
+            parts = _parts(kind)
+            if len(parts) > 1:
+                block["ln2"] = stacked("ln2")
+            for name in parts:
+                block[name] = _TUPLES[name](**{
+                    f: stacked(f"{name}.{f}") for f in _GROUPS[name].FIELDS})
+            seg.append(block)
+        out["segments"].append(tuple(seg))
+    return out
+
+
+def from_repro_tree(cfg: ModelConfig, tree: dict) -> dict:
+    """The inverse of :func:`to_repro_tree`: the JAX package's layout to
+    leaves keyed by the port's parameter names (``None`` leaves left
+    out)."""
+    named = {k: tree[k] for k in ("embed", "final_norm", "lm_head")
+             if tree.get(k) is not None}
+    for i, (repeat, period) in enumerate(cfg.segments):
+        for j, kind in enumerate(period):
+            block = tree["segments"][i][j]
+            leaves = {"ln1": block["ln1"], "ln2": block.get("ln2")}
+            for name in _parts(kind):
+                for f in _GROUPS[name].FIELDS:
+                    leaves[f"{name}.{f}"] = getattr(block[name], f)
+            for suffix, leaf in leaves.items():
+                if leaf is None:
+                    continue
+                for r in range(repeat):
+                    named[f"segments.{i}.{r}.{j}.{suffix}"] = _take(leaf, r)
+    return named
+
+
+def lm_to_numpy(model: TransformerLM, cfg: ModelConfig) -> dict:
+    """A :class:`TransformerLM`'s weights as numpy in the JAX package's
+    ``init_lm`` tree: segments stacked under ``repeat``, ``NamedTuple``
+    layer parts, ``None`` for absent biases."""
+    return to_repro_tree(cfg, {name: to_numpy(p) for name, p
+                               in model.named_parameters()})

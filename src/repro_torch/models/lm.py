@@ -13,8 +13,13 @@ Frontends: ``audio`` consumes precomputed frame embeddings; ``vision``
 prepends precomputed patch embeddings to the token embeddings.
 
 The module-level functions keep the JAX package's names and arguments, with
-a :class:`TransformerLM` where it takes the params tree. Parameters take no
-gradient: this is the serving path (``lm_loss`` is forward only).
+a :class:`TransformerLM` where it takes the params tree. Parameters are
+built taking no gradient, for the serving path; the trainer
+(``repro_torch.train``) turns gradients on with ``requires_grad_(True)``.
+With ``cfg.remat``, while gradients are recorded for the parameters, each
+block's forward is recomputed in the backward pass
+(``torch.utils.checkpoint``), the counterpart of the JAX package's
+``jax.checkpoint`` around its scan body.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import copy
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks
@@ -104,8 +110,16 @@ def lm_forward(params: TransformerLM, cfg: ModelConfig, batch: dict):
     """Full-sequence forward. Returns (logits (B,S,V), aux)."""
     x = _embed_inputs(params, cfg, batch)
     aux_total = blocks.zero_aux(x.device)
+    # remat only while a backward pass is being recorded (the trainer
+    # switches every parameter to take gradients)
+    remat = cfg.remat and torch.is_grad_enabled() and \
+        params.final_norm.requires_grad
     for kind, block in params.layers():
-        x, a = blocks.block_forward(kind, block, x, cfg)
+        if remat:
+            x, a = checkpoint(blocks.block_forward, kind, block, x, cfg,
+                              use_reentrant=False)
+        else:
+            x, a = blocks.block_forward(kind, block, x, cfg)
         aux_total = blocks._add_aux(aux_total, a)
     return _head(params, cfg, x), aux_total
 
@@ -120,7 +134,8 @@ def lm_loss(params: TransformerLM, cfg: ModelConfig, batch: dict,
         prefix = batch["patch_embeds"].shape[1]
         logits = logits[:, prefix:]
     logits32 = logits.float()
-    m = torch.amax(logits32, dim=-1, keepdim=True)
+    # the max only shifts the exponent: no gradient through it
+    m = torch.amax(logits32, dim=-1, keepdim=True).detach()
     logz = torch.log(torch.sum(torch.exp(logits32 - m), dim=-1)) + m[..., 0]
     # the gold logit in the logits' dtype (the JAX package's one-hot
     # contraction has one nonzero term: the same value)

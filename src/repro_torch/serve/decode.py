@@ -8,6 +8,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import random as R
 from repro_torch.models import lm
 from repro_torch.models.common import ModelConfig
 
@@ -26,19 +27,17 @@ def make_decode_step(cfg: ModelConfig):
     return step
 
 
-def sample_token(logits, generator: Optional[torch.Generator] = None,
+def sample_token(logits, key: Optional[torch.Tensor] = None,
                  temperature: float = 0.0):
     """logits: (B, 1, V) -> (B, 1) int32. Greedy when temperature == 0
-    (the lower index on ties, as ``jnp.argmax``); otherwise a Gumbel-max
-    draw from ``generator``. The draws are not ``jax.random.categorical``'s:
-    sampled tokens are reproducible per seed, not equal to the JAX
-    package's."""
+    (the lower index on ties, as ``jnp.argmax``); otherwise a draw from
+    ``softmax(logits / temperature)`` under ``key`` (a
+    :func:`repro_torch.random.PRNGKey` key), equal to
+    ``jax.random.categorical``'s."""
     if temperature <= 0.0:
         return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
     scaled = logits[:, -1].float() / temperature
-    u = torch.rand(scaled.shape, generator=generator, device=scaled.device)
-    gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
-    return torch.argmax(scaled + gumbel, dim=-1).to(torch.int32)[:, None]
+    return R.categorical(key, scaled, axis=-1).to(torch.int32)[:, None]
 
 
 def _sync(device: torch.device) -> None:
@@ -56,8 +55,9 @@ def generate(params: lm.TransformerLM, cfg: ModelConfig, prompt_tokens,
     ``prompt_tokens`` (B, S) may be numpy or a tensor; it goes to the
     model's device. The weights are cast once to the compute dtype
     (:func:`~repro_torch.models.lm.cast_for_compute`), which gives the
-    values of a cast at every use. Sampling draws from a ``torch.Generator``
-    seeded by ``seed`` (see :func:`sample_token`). With a ``timings``
+    values of a cast at every use. Sampling starts from ``PRNGKey(seed)``
+    and splits the key before every decode step, as the JAX package does,
+    so sampled tokens equal its tokens. With a ``timings``
     dict, the device is synchronised after the prefill and after each
     step, and ``timings["prefill_s"]`` (prefill and the first token) and
     ``timings["step_s"]`` (one entry a decode step) are filled in."""
@@ -69,14 +69,13 @@ def generate(params: lm.TransformerLM, cfg: ModelConfig, prompt_tokens,
     params = lm.cast_for_compute(params)
     prefill = make_prefill(cfg, max_t)
     step = make_decode_step(cfg)
-    gen = torch.Generator(device=dev).manual_seed(seed) \
-        if temperature > 0.0 else None
+    key = R.PRNGKey(seed, device=dev)
     clock = time.perf_counter
     if timings is not None:
         _sync(dev)
         t0 = clock()
     logits, caches = prefill(params, {"tokens": tokens})
-    out = [sample_token(logits, gen, temperature)]
+    out = [sample_token(logits, key, temperature)]
     if timings is not None:
         _sync(dev)
         timings["prefill_s"] = clock() - t0
@@ -84,8 +83,9 @@ def generate(params: lm.TransformerLM, cfg: ModelConfig, prompt_tokens,
     for _ in range(n_new - 1):
         if timings is not None:
             t0 = clock()
+        key, sub = R.split(key)
         logits, caches = step(params, caches, out[-1])
-        out.append(sample_token(logits, gen, temperature))
+        out.append(sample_token(logits, sub, temperature))
         if timings is not None:
             _sync(dev)
             timings["step_s"].append(clock() - t0)

@@ -305,12 +305,15 @@ class DiskRecordStore:
 
     # -- fetch (frontier records) ---------------------------------------
     def fetch(self, ids: np.ndarray, hops: np.ndarray | None = None,
-              live: np.ndarray | None = None, dense: bool = True) -> dict:
+              live: np.ndarray | None = None, dense: bool = True,
+              track: bool = True) -> dict:
         """Batch record fetch with the fault ladder and read-ahead.
 
         Dead rows (``live`` False) are skipped — the hop loop fully masks
         them downstream, so zeros are never consumed. Returns a dict of
-        numpy arrays with ``search.local_fetch``'s fields.
+        numpy arrays with ``search.local_fetch``'s fields. ``track=False``
+        leaves the fetch counters, the latency samples and read-ahead out
+        (page reads and the cache still count).
         """
         ids = np.asarray(ids, np.int64).reshape(-1)
         n = ids.size
@@ -376,6 +379,8 @@ class DiskRecordStore:
             out["rec_labels"][i] = rec["rec_labels"]
             out["rec_values"][i] = rec["rec_values"]
             out["cand_first"][i] = rec["cand_first"]
+        if not track:
+            return out
         self.counters.records_fetched += n_live
         batch_pages = self.counters.pages_read - pages_before
         if n_live > 1 and batch_pages > 0 and \
@@ -455,6 +460,12 @@ class DiskRecordStore:
     def fetch_host(self, ids: np.ndarray) -> dict:
         """Plain std-block fetch for host-driven paths (no faults)."""
         return self.fetch(ids, hops=None, live=None, dense=False)
+
+    def read_vectors(self, ids: np.ndarray, track: bool = False
+                     ) -> np.ndarray:
+        """The float32 vectors of ``ids`` (std blocks), untracked unless
+        asked."""
+        return self.fetch(ids, dense=False, track=track)["vectors"]
 
     def scan_records(self, start: int = 0, stop: int | None = None) -> dict:
         """Sequential full scan for evaluation paths (ground truth): reads

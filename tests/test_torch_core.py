@@ -1,7 +1,8 @@
 """Module-by-module parity of the PyTorch port's core against the JAX
 package, on the shared_ds / shared_engine corpus of tests/conftest.py:
 PQ tables and lookups bit for bit, encoding under ``repro``'s codebook, the
-record store's first-occurrence mask, the device membership predicates, the
+record store's first-occurrence mask and page counts, ``bloom_pass``, the
+device membership predicates (``merged_table`` too), the
 host planners' QueryFilters and the cost model's routes."""
 import numpy as np
 import pytest
@@ -10,11 +11,13 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from repro.core import bloom as jbloom
 from repro.core import cost_model as jcost
 from repro.core import pq as jpq
 from repro.core import records as jrecords
 from repro.core import selectors as jsel
 from repro.data.synth import make_selectors
+from repro_torch.core import bloom as tbloom
 from repro_torch.core import cost_model as tcost
 from repro_torch.core import pq as tpq
 from repro_torch.core import records as trecords
@@ -98,6 +101,42 @@ def test_candidate_first_mask(shared_engine, port):
     assert port.store.pages_dense == shared_engine.store.pages_dense
 
 
+@pytest.mark.parametrize("vec_dtype_size", [2, 4, 1])
+def test_make_record_store_page_counts(shared_engine, vec_dtype_size):
+    """``vec_dtype_size`` sets the page counts as in ``repro``, while the
+    vectors stay float32."""
+    s = shared_engine.store
+    arrays = [np.asarray(a) for a in (s.vectors, s.neighbors,
+                                      s.dense_neighbors, s.rec_labels,
+                                      s.rec_values)]
+    want = jrecords.make_record_store(*arrays, vec_dtype_size=vec_dtype_size)
+    got = trecords.make_record_store(*arrays, "cpu",
+                                     vec_dtype_size=vec_dtype_size)
+    assert (got.pages_std, got.pages_dense) == (want.pages_std,
+                                                want.pages_dense)
+    assert got.vectors.dtype == torch.float32
+    np.testing.assert_array_equal(got.cand_first.numpy(),
+                                  np.asarray(want.cand_first))
+
+
+@pytest.mark.parametrize("mask", [0, 0x5, 0x80000001, 0xFFFFFFFF])
+def test_bloom_pass_equal(shared_engine, port, mask):
+    """On the uint32 words (numpy) and on the port's int32 tensor view,
+    against ``repro``'s jitted probe, scalar and per-row masks."""
+    blooms = np.asarray(shared_engine.mem.blooms)
+    want = np.asarray(jbloom.bloom_pass(jnp.asarray(blooms),
+                                        np.uint32(mask)))
+    np.testing.assert_array_equal(tbloom.bloom_pass(blooms, mask), want)
+    np.testing.assert_array_equal(
+        tbloom.bloom_pass(port.mem.blooms, mask).numpy(), want)
+    rows = np.random.default_rng(mask & 0xFF).integers(
+        0, 2 ** 32, blooms.shape, dtype=np.uint64).astype(np.uint32) & mask
+    want = np.asarray(jbloom.bloom_pass(jnp.asarray(blooms),
+                                        jnp.asarray(rows)))
+    np.testing.assert_array_equal(
+        tbloom.bloom_pass(port.mem.blooms, rows).numpy(), want)
+
+
 def _plans(ds, e, pe, workload):
     cfg = e.config
     sels = make_selectors(ds, e, workload)
@@ -144,6 +183,11 @@ def test_membership_equal(shared_ds, shared_engine, port, workload):
     want = np.asarray(jsel.merged_table_words(
         jax.tree_util.tree_map(jnp.asarray, jqf), e.n))
     got = tsel.merged_table_words(tqf, e.n)
+    np.testing.assert_array_equal(got.numpy(), want)
+    want = np.asarray(jsel.merged_table(
+        jax.tree_util.tree_map(jnp.asarray, jqf), e.n))
+    got = tsel.merged_table(tqf, e.n)
+    assert got.dtype == torch.bool and got.shape == (len(jp), e.n + 1)
     np.testing.assert_array_equal(got.numpy(), want)
     want = np.asarray(jax.vmap(jsel.merged_membership)(jqf, jnp.asarray(ids)))
     got = tsel.merged_membership(tqf, torch.from_numpy(ids))

@@ -606,3 +606,74 @@ def test_lm_forward_and_decode_card_matches_cpu(cuda, arch):
         gl, gc = lm.lm_decode_step(card, gc, cfg,
                                    tokens[:, i:i + 1].to(cuda))
         close(gl, wl)
+
+
+@pytest.mark.parametrize("arch,microbatches", [("jamba-v0.1-52b", 1),
+                                               ("mixtral-8x22b", 2)])
+def test_train_step_card_matches_cpu(cuda, arch, microbatches):
+    """The training path's smoke config on the card and on the CPU from the
+    same weights: loss and every gradient leaf, then the parameters after
+    one train step at ``launch.train``'s optimizer settings (float32,
+    TF32 off; within 1e-4)."""
+    import copy
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.tokens import lm_batch
+    from repro_torch.models import lm
+    from repro_torch.train import optim, train_loop
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    cfg = smoke_config(arch)
+    cpu = lm.init_lm(cfg, seed=0, device="cpu")
+    card = copy.deepcopy(cpu).to(cuda)
+    batch = lm_batch(cfg, 4, 32, 1)
+
+    def close(got, want):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+    wl, _, wg = train_loop.loss_and_grads(cpu, cfg, batch, microbatches)
+    gl, _, gg = train_loop.loss_and_grads(card, cfg, batch, microbatches)
+    close(gl, wl)
+    for k in wg:
+        close(gg[k], wg[k])
+    ocfg = optim.OptConfig(lr=1e-3, warmup_steps=10)
+    for model in (cpu, card):
+        step = train_loop.make_train_step(cfg, ocfg, microbatches)
+        step(model, optim.init_opt_state(model, ocfg), batch)
+    for (_, p), (_, q) in zip(cpu.named_parameters(), card.named_parameters()):
+        close(q.detach(), p.detach())
+
+
+def test_threefry_and_int8_quantizers_card_equal_cpu(cuda):
+    """Threefry draws, ``q8_quantize`` and ``compressed_psum_grads`` on the
+    card equal the CPU's bit for bit (divisions by tensors, the float64
+    fused multiply-adds)."""
+    from repro_torch import random as R
+    from repro_torch.train import grad_compress, optim
+    rng = np.random.default_rng(3)
+    logits = torch.from_numpy(rng.normal(0, 3, (5, 4099))
+                              .astype(np.float32))
+    for seed in (0, 42, -1):
+        kc, kd = R.PRNGKey(seed), R.PRNGKey(seed, device=cuda)
+        assert torch.equal(R.split(kd, 7).cpu(), R.split(kc, 7))
+        assert torch.equal(R.random_bits(kd, (3, 513)).cpu(),
+                           R.random_bits(kc, (3, 513)))
+        assert torch.equal(R.uniform(kd, (3, 513), -2.5, 3.7).cpu(),
+                           R.uniform(kc, (3, 513), -2.5, 3.7))
+        assert torch.equal(R.gumbel(kd, (5, 4099)).cpu(),
+                           R.gumbel(kc, (5, 4099)))
+        assert torch.equal(R.categorical(kd, logits.to(cuda)).cpu(),
+                           R.categorical(kc, logits))
+    x = torch.from_numpy(rng.normal(0, 2, (7, 3, 300)).astype(np.float32))
+    want, got = optim.q8_quantize(x), optim.q8_quantize(x.to(cuda))
+    assert torch.equal(got.q.cpu(), want.q)
+    assert torch.equal(got.scale.cpu(), want.scale)
+    grads = [{"a": torch.from_numpy(rng.normal(0, s, (9, 301))
+                                    .astype(np.float32))}
+             for s in (1.0, 0.1, 3.0, 0.5)]
+    errs = [grad_compress.init_error_feedback(g) for g in grads]
+    mean, new = grad_compress.compressed_psum_grads(grads, errs)
+    dmean, dnew = grad_compress.compressed_psum_grads(
+        [{"a": g["a"].to(cuda)} for g in grads],
+        [{"a": e["a"].to(cuda)} for e in errs])
+    assert torch.equal(dmean["a"].cpu(), mean["a"])
+    for d, w in zip(dnew, new):
+        assert torch.equal(d["a"].cpu(), w["a"])

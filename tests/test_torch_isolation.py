@@ -70,7 +70,13 @@ def test_port_imports_no_jax_no_repro():
                 "repro_torch.models.lm", "repro_torch.models.convert",
                 "repro_torch.configs", "repro_torch.configs.registry",
                 "repro_torch.serve.decode", "repro_torch.launch",
-                "repro_torch.launch.serve"}
+                "repro_torch.launch.serve", "repro_torch.random",
+                "repro_torch.utils", "repro_torch.utils.tree",
+                "repro_torch.data.tokens", "repro_torch.data.pipeline",
+                "repro_torch.train", "repro_torch.train.optim",
+                "repro_torch.train.train_loop",
+                "repro_torch.train.grad_compress",
+                "repro_torch.launch.train"}
     assert expected <= set(res["modules"]), expected - set(res["modules"])
 
 

@@ -1,6 +1,7 @@
 """The port's LM serving path (``repro_torch.serve.decode``,
 ``repro_torch.launch.serve``) against the JAX package's on the CPU: greedy
-generation token for token, seeded sampling, the launcher, and the RAG flow
+and sampled generation token for token, the threefry keys and draws
+under sampling, the launcher, and the RAG flow
 of examples/rag_serve.py (filtered retrieval through ``RetrievalFrontend``
 feeding ``generate``) with the JAX package's index and weights carried
 across."""
@@ -20,6 +21,7 @@ from repro.models import lm as JLM
 from repro.serve.decode import generate as jgenerate
 from repro.serve.retrieval import RetrievalFrontend as JRetrievalFrontend
 from repro_torch import api as tapi
+from repro_torch import random as trandom
 from repro_torch.configs import smoke_config
 from repro_torch.launch import serve as tlaunch
 from repro_torch.models import convert
@@ -51,23 +53,90 @@ def test_greedy_generate_equals_repro(arch):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-def test_sample_token_seeded_and_greedy_at_zero():
-    logits = torch.from_numpy(np.random.default_rng(0).normal(
-        0, 1, (4, 1, 512)).astype(np.float32))
+@pytest.mark.parametrize("seed", [0, 1, 7])
+def test_sample_token_seeded_and_greedy_at_zero(seed):
+    """Sampling under a key draws ``jax.random.categorical``'s tokens;
+    temperature 0 (with or without a key) and a tiny one are greedy."""
+    logits_np = np.random.default_rng(seed).normal(
+        0, 1, (4, 1, 512)).astype(np.float32)
+    logits = torch.from_numpy(logits_np)
     greedy = sample_token(logits)
     assert greedy.shape == (4, 1) and greedy.dtype == torch.int32
     assert torch.equal(greedy[:, 0], logits[:, -1].argmax(-1).int())
-    assert torch.equal(sample_token(logits, None, 0.0), greedy)
+    key = trandom.PRNGKey(seed)
+    assert torch.equal(sample_token(logits, key, 0.0), greedy)
+    assert torch.equal(sample_token(logits, key, 1e-6), greedy)
+    for temp in (0.7, 1.0, 1.3):
+        want = jax.random.categorical(
+            jax.random.PRNGKey(seed),
+            jnp.asarray(logits_np[:, -1]) / temp, axis=-1)
+        np.testing.assert_array_equal(
+            sample_token(logits, key, temp).numpy()[:, 0], np.asarray(want))
+    subkeys = trandom.split(key, 3)
+    draws = [sample_token(logits, k, 1.0) for k in subkeys]
+    assert not all(torch.equal(draws[0], d) for d in draws[1:])
 
-    def draw(seed):
-        g = torch.Generator().manual_seed(seed)
-        return torch.cat([sample_token(logits, g, 1.0) for _ in range(8)], 1)
 
-    assert torch.equal(draw(1), draw(1))
-    assert not torch.equal(draw(1), draw(2))
-    # a tiny temperature is greedy
-    g = torch.Generator().manual_seed(0)
-    assert torch.equal(sample_token(logits, g, 1e-6), greedy)
+@pytest.mark.parametrize("seed", [0, 1, 42, 2 ** 31 - 1, -1])
+def test_threefry_keys_and_bits_equal_jax(seed):
+    """``PRNGKey``, ``split``, the bits and ``uniform`` equal jax's
+    outright (partitionable threefry), over shapes of odd sizes."""
+    kj, kt = jax.random.PRNGKey(seed), trandom.PRNGKey(seed)
+    np.testing.assert_array_equal(kt.numpy(), np.asarray(kj).astype(np.int64))
+    for n in (2, 3, 7):
+        np.testing.assert_array_equal(
+            trandom.split(kt, n).numpy(),
+            np.asarray(jax.random.split(kj, n)).astype(np.int64))
+    for shape in ((1,), (5,), (3, 7), (2, 3, 513)):
+        np.testing.assert_array_equal(
+            trandom.random_bits(kt, shape).numpy(),
+            np.asarray(jax.random.bits(kj, shape, jnp.uint32))
+            .astype(np.int64))
+        np.testing.assert_array_equal(
+            trandom.uniform(kt, shape).numpy(),
+            np.asarray(jax.random.uniform(kj, shape)))
+        np.testing.assert_array_equal(
+            trandom.uniform(kt, shape, -2.5, 3.7).numpy(),
+            np.asarray(jax.random.uniform(kj, shape, minval=-2.5,
+                                          maxval=3.7)))
+
+
+@pytest.mark.parametrize("seed", [0, 3, 123456789])
+def test_gumbel_log_and_categorical_equal_jax(seed):
+    """``gumbel``, the log under it and ``categorical`` equal jax's
+    outright (XLA-CPU's log polynomial and fused multiply-adds)."""
+    kj, kt = jax.random.PRNGKey(seed), trandom.PRNGKey(seed)
+    for shape in ((5,), (3, 7), (4, 4099)):
+        np.testing.assert_array_equal(
+            trandom.gumbel(kt, shape).numpy(),
+            np.asarray(jax.random.gumbel(kj, shape)))
+        logits = np.random.default_rng(seed).normal(
+            0, 3, shape).astype(np.float32)
+        np.testing.assert_array_equal(
+            trandom.categorical(kt, torch.from_numpy(logits)).numpy(),
+            np.asarray(jax.random.categorical(kj, jnp.asarray(logits))))
+    x = np.abs(np.random.default_rng(seed).normal(0, 40, 20000)) \
+        .astype(np.float32) + np.float32(1e-30)
+    np.testing.assert_array_equal(trandom.log(torch.from_numpy(x)).numpy(),
+                                  np.asarray(jnp.log(jnp.asarray(x))))
+
+
+@pytest.mark.parametrize("temperature", [0.7, 1.3])
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "mamba2-2.7b",
+                                  "mixtral-8x22b"])
+def test_sampled_generate_equals_repro(arch, temperature):
+    """Sampled generation from the same seed: the JAX package's tokens."""
+    jcfg, tcfg = jsmoke_config(arch), smoke_config(arch)
+    params, model = lm_pair(jcfg, tcfg, seed=6)
+    prompts = np.random.default_rng(6).integers(
+        0, jcfg.vocab, (3, 20)).astype(np.int32)
+    want = np.asarray(jgenerate(params, jcfg, jnp.asarray(prompts), 10,
+                                temperature=temperature, seed=11))
+    got = generate(model, tcfg, prompts, 10, temperature=temperature,
+                   seed=11)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert not np.array_equal(want, np.asarray(jgenerate(
+        params, jcfg, jnp.asarray(prompts), 10)))
 
 
 def test_generate_sampled_is_seeded():

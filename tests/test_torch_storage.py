@@ -375,6 +375,28 @@ def test_slab_files_byte_equal_to_repro(pair, slab_dir, jslab_dir):
         os.path.join(slab_dir, slab_mod.SLAB_FILE))
 
 
+@pytest.mark.parametrize("track", [False, True])
+def test_read_vectors_equal_to_repro(pair, slab_dir, jslab_dir, track):
+    """``read_vectors`` on either package's slab returns ``repro``'s
+    vectors; untracked reads leave the fetch counters alone."""
+    jidx, _ = pair
+    ids = np.random.default_rng(3).integers(0, N, 40)
+    ds = DiskRecordStore(slab_dir)
+    js = JDiskRecordStore(jslab_dir)
+    try:
+        want = js.read_vectors(ids, track=track)
+        np.testing.assert_array_equal(ds.read_vectors(ids, track=track),
+                                      want)
+        np.testing.assert_array_equal(
+            want, np.asarray(jidx.engine.store.vectors)[ids])
+        assert ds.counters.records_fetched == \
+            js.counters.records_fetched == (len(ids) if track else 0)
+        assert ds.counters.pages_read == js.counters.pages_read
+    finally:
+        ds.close()
+        js.close()
+
+
 def test_disk_bit_identical_across_policies(corpus, pair, slab_dir,
                                             jslab_dir):
     vectors, _ = corpus
