@@ -150,9 +150,10 @@ Phases, each printing one JSON line:
    gradient leaf, and the parameters after one AdamW step with float32 and
    with int8 moments (within 1e-4); ``compressed_psum_grads`` at S = 4,
    threefry draws and sampled ``generate`` equal to the CPU's.
-   ``train_full``: ``launch.train.main`` on qwen2-1.5b at its published
-   widths (float32 parameters, bfloat16 compute, remat), 4 × 512 tokens a
-   step, 8 steps, no save: losses finite and falling, step seconds
+   ``train_full``: ``launch.train.main --mesh local`` on qwen2-1.5b at its
+   published widths (float32 parameters, bfloat16 compute, remat), 4 × 512
+   tokens a step, 8 steps, no save: the mesh and its per-device parameter
+   bytes, losses finite and falling, step seconds
    (median from the second step), tokens/s, PyTorch calls a step (counted
    on the CPU at the real depth and tiny widths), peak memory, and the
    step's bound 8 · params · tokens at 989 TFLOP/s. ``train_resume``: 6
@@ -160,6 +161,20 @@ Phases, each printing one JSON line:
    end with the parameters of an uninterrupted run, and the step-4
    checkpoint restores into a fresh model. Its launches (none: no kernel
    lies on this path) are counted as phase 12's.
+13. mesh — after phase 12, before phase 10: the mesh and launch tooling
+   (``launch.mesh``, ``launch.shardings``, ``serve.sp_attention``,
+   ``launch.roofline``, ``launch.dryrun``, ``launch.dryrun_ann``).
+   ``sp_decode``: qwen2-1.5b at its published widths, 8 requests × 512
+   prompt tokens into caches of 32,768 slots, 16 greedy new tokens, the
+   plain decode and then ``sp_decode=True`` under ``make_local_mesh(1,
+   4)``: in float32 (TF32 off) tokens equal and every step's logits within
+   2e-3, every attention layer of every step through the split-K core; in
+   the config's bfloat16 ms/token of both, PyTorch calls a step and the
+   step's bytes bound. ``dryrun``: ``launch.dryrun.run_cell("qwen2-1.5b",
+   "decode_32k", "single")`` and ``launch.dryrun_ann.run("single")`` on
+   ``meta``, status ok, with their per-card bytes and roofline terms
+   (analytic, at the H100 SXM data sheet's rates). Its launches (none) are
+   counted as phase 13's.
 
 Phase 2 also times ``hop_fused_gather`` at the shard widths B = 32 and 16
 and ``prune_scan`` on 512 and 256 of its 1024 rows (one shard's prune at
@@ -170,8 +185,8 @@ also inserts the same batch on the card and on the CPU copy, runs the
 fault plan on both and saves on the card to load on the CPU.
 
 Then a ``kernels`` line (launches of hop_fused, or_scatter and prune_scan
-from phase 4 (each row also lists its launches in every phase, phases 8's,
-9's, 10's, 11's and 12's included, and the line its ``hop_fused_gather``, ``or_scatter_`` and
+from phase 4 (each row also lists its launches in every phase, phases 8's
+to 13's included, and the line its ``hop_fused_gather``, ``or_scatter_`` and
 ``pq_scan_gather`` calls in phase 8), of pq_scan from phase 5, of approx_probe and l2_rerank from
 phase 6; times from phase 2: hop_fused's of the gathered entry with the slab
 entry's and the shard-width rows beside it, or_scatter's of the in-place
@@ -199,8 +214,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate
-F32_OPS_PER_S = 67e12           # H100 SXM float32 rate outside tensor cores
 FULL_N = 1_000_000
 MIN_N = 250_000
 TIME_LIMIT_S = 1200.0           # the smoke's limit, kernel builds included
@@ -261,8 +274,9 @@ def time_ms(fn, reps: int = 21, per_rep: int = 10) -> tuple[float, float]:
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    from repro_torch.launch.roofline import F32_FLOPS, HBM_BYTES_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -2540,7 +2554,6 @@ TRAIN_DIR = ROOT / "build" / "smoke_train"
 # so a gradient of ~1e-8 that the card computes 5e-10 off moves its
 # parameter by ~0.013 lr (at lr 1e-2, 1.3e-4: past the 1e-4 bar)
 TRAIN_OPT = {"lr": 1e-3, "warmup_steps": 10}
-BF16_RATE = "989 TFLOP/s, H100 SXM dense bfloat16 (data sheet)"
 
 
 def _same_params(label, a, b) -> None:
@@ -2673,14 +2686,17 @@ def train_full(dev) -> dict:
     """``launch.train.main`` on qwen2-1.5b at its published widths (float32
     parameters, bfloat16 compute, remat on), TRAIN_SIZES["full"], no save:
     finite losses that fall, step seconds, tokens/s, PyTorch calls a step
-    (counted on the CPU at the real depth and tiny widths), peak memory and
-    the step's bound at BF16_RATE; then one more step under
-    ``torch.profiler`` for the device's busy time and idle share."""
+    (counted on the CPU at the real depth and tiny widths), peak memory,
+    the step's bound at ``launch.roofline.BF16_FLOPS`` and, through
+    ``--mesh local``, the mesh and its per-device parameter bytes; then
+    one more step under ``torch.profiler`` for the device's busy time and
+    idle share."""
     import math
     import shutil
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch import train
+    from repro_torch.launch.roofline import BF16_FLOPS
 
     cfg = get_config("qwen2-1.5b")
     assert (cfg.param_dtype, cfg.compute_dtype, cfg.remat) == \
@@ -2692,7 +2708,8 @@ def train_full(dev) -> dict:
     res = train.main(["--arch", "qwen2-1.5b", "--steps", str(steps),
                       "--batch", str(b), "--seq", str(s), "--ckpt-dir",
                       str(ckpt), "--ckpt-every", str(steps + 1),
-                      "--device", str(dev)])
+                      "--mesh", "local", "--device", str(dev)])
+    assert res["mesh"] == {"data": 1, "model": torch.cuda.device_count()}
     model, opt = res.pop("params_module"), res.pop("opt_state")
     from repro_torch.data.tokens import lm_batch
     from repro_torch.train import OptConfig, make_train_step
@@ -2710,7 +2727,8 @@ def train_full(dev) -> dict:
     assert not list(ckpt.glob("step_*")), "train_full saved a checkpoint"
     res.update(torch_ops_per_step=train.count_step_ops(cfg, b, s),
                loss_first=losses[0], loss_last=losses[-1],
-               bound_rate=BF16_RATE, d_model=cfg.d_model,
+               bound_rate=f"{BF16_FLOPS:.4g} FLOP/s, H100 SXM dense "
+               "bfloat16 (data sheet)", d_model=cfg.d_model,
                vocab=cfg.vocab)
     return res
 
@@ -2780,6 +2798,183 @@ def train_phase(dev) -> dict:
                      ("train_resume", train_resume)):
         t0 = time.perf_counter()
         out[name] = fn(dev)
+        out[name]["seconds"] = time.perf_counter() - t0
+        emit({"phase": name, **out[name]})
+    after = ops.snapshot()
+    out["launches"] = {k: after[k] - before[k] for k in after}
+    return out
+
+
+# the split-K decode run: requests, prompt tokens, cache slots (decode_32k's
+# length) and greedy new tokens, and the local mesh's model-axis width
+MESH_SIZES = {"sp": (8, 512, 32768, 16), "shards": 4}
+MESH_DIR = ROOT / "build" / "smoke_dryrun"
+
+
+def _greedy(model, cfg, prompts, max_t: int, new: int):
+    """Prefill ``prompts`` into caches of ``max_t`` slots, then ``new`` - 1
+    greedy decode steps: (tokens (B, new), every step's logits)."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.serve.decode import sample_token
+    with torch.inference_mode():
+        logits, caches = lm.lm_prefill(model, cfg, {"tokens": prompts},
+                                       max_t)
+        out, seen = [sample_token(logits)], [logits]
+        for _ in range(new - 1):
+            logits, caches = lm.lm_decode_step(model, caches, cfg, out[-1])
+            out.append(sample_token(logits))
+            seen.append(logits)
+    return torch.cat(out, dim=1), torch.cat(seen, dim=1)
+
+
+def sp_decode_run(dev) -> dict:
+    """qwen2-1.5b at its published widths, MESH_SIZES["sp"]: the plain
+    decode, then ``sp_decode=True`` under ``make_local_mesh(1, S)`` (the
+    KV cache split into S ``narrow`` views, the logsumexp merge). In
+    float32 (TF32 off): greedy tokens equal and every step's logits within
+    DECODE_TOL, with every attention layer of every step through
+    ``_sp_decode_core``. In the config's bfloat16: ms/token of both through
+    ``generate`` (median of steps 2 on), PyTorch calls a step and the
+    step's bytes bound (weights once plus the KV read, at the HBM rate)."""
+    import dataclasses
+    import statistics
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.roofline import HBM_BYTES_PER_S
+    from repro_torch.launch.serve import step_read_bytes, torch_ops
+    from repro_torch.models import attention as A
+    from repro_torch.models import lm
+    from repro_torch.models.common import (clear_activation_sharding,
+                                           set_activation_sharding)
+    from repro_torch.serve.decode import generate, make_decode_step
+
+    b, prompt, slots, new = MESH_SIZES["sp"]
+    shards = MESH_SIZES["shards"]
+    cfg = get_config("qwen2-1.5b")
+    assert cfg.window == 0 and slots % shards == 0
+    mesh = make_local_mesh(1, shards, dev)
+    prompts = torch.from_numpy(np.random.default_rng(13).integers(
+        0, cfg.vocab, (b, prompt)).astype(np.int32)).to(dev)
+    calls = [0]
+    core = A._sp_decode_core
+
+    def counted_core(*a, **k):
+        calls[0] += 1
+        return core(*a, **k)
+
+    out = {"batch": b, "prompt": prompt, "cache_slots": slots,
+           "new_tokens": new, "shards": shards, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv]}
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = lm.init_lm(cfg32, 0, dev)
+    t0 = time.perf_counter()
+    want_tok, want_logits = _greedy(model, cfg32, prompts, slots, new)
+    A._sp_decode_core = counted_core
+    set_activation_sharding(mesh, ("data",))
+    try:
+        got_tok, got_logits = _greedy(
+            model, dataclasses.replace(cfg32, sp_decode=True), prompts,
+            slots, new)
+    finally:
+        clear_activation_sharding()
+        A._sp_decode_core = core
+    torch.cuda.synchronize(dev)
+    assert calls[0] == cfg.n_layers * (new - 1), \
+        f"split-K ran {calls[0]} times, not {cfg.n_layers * (new - 1)}"
+    assert torch.equal(got_tok, want_tok), "sp_decode: greedy tokens differ"
+    out["float32"] = {
+        "tokens_equal": True, "sp_core_calls": calls[0],
+        "max_abs_err": _max_err("sp_decode logits", got_logits,
+                                want_logits, DECODE_TOL),
+        "seconds": time.perf_counter() - t0}
+    del model, want_logits, got_logits
+
+    # bfloat16 (the config's compute dtype): the timed runs
+    torch.cuda.empty_cache()
+    model = lm.init_lm(cfg, 0, dev)
+    rows = {}
+    for name, sp in (("plain", False), ("split_k", True)):
+        run_cfg = dataclasses.replace(cfg, sp_decode=sp)
+        if sp:
+            set_activation_sharding(mesh, ("data",))
+        try:
+            timings = {}
+            toks = generate(model, run_cfg, prompts, new, max_t=slots,
+                            timings=timings)
+            serving = lm.cast_for_compute(model)
+            with torch.inference_mode():
+                _, caches = lm.lm_prefill(serving, run_cfg,
+                                          {"tokens": prompts}, slots)
+            step = make_decode_step(run_cfg)
+            ops = torch_ops(lambda: step(serving, caches, toks[:, :1]))
+            read = step_read_bytes(serving, caches)
+        finally:
+            clear_activation_sharding()
+        del serving, caches
+        steps = timings["step_s"][1:]
+        ms = statistics.median(steps) * 1e3
+        rows[name] = {"prefill_s": timings["prefill_s"],
+                      "decode_ms_per_token": ms,
+                      "decode_tok_s": b / (ms / 1e3),
+                      "torch_ops_per_step": ops, "step_read_bytes": read,
+                      "step_bound_ms": read / HBM_BYTES_PER_S * 1e3,
+                      "tokens": toks.cpu()}
+    # bfloat16 tokens may part on near-ties: reported, held in float32
+    rows["split_k"]["bf16_tokens_equal"] = bool(torch.equal(
+        rows["split_k"].pop("tokens"), rows["plain"].pop("tokens")))
+    rows["split_k"]["ms_ratio"] = rows["split_k"]["decode_ms_per_token"] \
+        / rows["plain"]["decode_ms_per_token"]
+    out["bfloat16"] = rows
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def dryrun_run() -> dict:
+    """``launch.dryrun.run_cell("qwen2-1.5b", "decode_32k", "single")`` and
+    ``launch.dryrun_ann.run("single")``, both on ``meta`` (the search's
+    hop counted on a small CPU store), status ok, with their per-card
+    bytes and roofline terms (analytic, at the H100 SXM data sheet's
+    rates)."""
+    import shutil
+    from repro_torch.launch import dryrun, dryrun_ann
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    out = {}
+    for name, r in (("qwen2-1.5b/decode_32k",
+                     dryrun.run_cell("qwen2-1.5b", "decode_32k", "single",
+                                     str(MESH_DIR))),
+                    ("ann_search/single",
+                     dryrun_ann.run("single", str(MESH_DIR)))):
+        assert r["status"] == "ok", f"dry-run {name}: {r.get('error')}"
+        out[name] = {"n_chips": r["n_chips"], "memory": r["memory"],
+                     "roofline": r["roofline"],
+                     "collective_bytes": r["counted"]["collective_bytes"],
+                     "flops_per_chip": r["counted"]["flops_per_chip"],
+                     "bytes_per_chip": r["counted"]["bytes_per_chip"]}
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    return out
+
+
+def mesh_phase(dev) -> dict:
+    """Phase 13: the mesh and launch tooling. Nothing here is caught: a
+    failed check fails the run. No kernel lies on this path; its launches
+    are counted all the same."""
+    import torch
+    from repro_torch.kernels import ops
+    assert torch.backends.cuda.matmul.allow_tf32 is False, \
+        "float32 checks need TF32 off (PyTorch's default)"
+    before = ops.snapshot()
+    out = {}
+    for name, fn in (("sp_decode", lambda: sp_decode_run(dev)),
+                     ("dryrun", dryrun_run)):
+        t0 = time.perf_counter()
+        out[name] = fn()
         out[name]["seconds"] = time.perf_counter() - t0
         emit({"phase": name, **out[name]})
     after = ops.snapshot()
@@ -2907,6 +3102,13 @@ def main(argv=None) -> int:
     emit({"phase": "train", "seconds": trn["seconds"],
           "launches": trn["launches"]})
 
+    # phase 13 too runs before phase 10
+    t0 = time.perf_counter()
+    meshr = mesh_phase(dev)
+    meshr["seconds"] = time.perf_counter() - t0
+    emit({"phase": "mesh", "seconds": meshr["seconds"],
+          "launches": meshr["launches"]})
+
     # phase 10 too runs on the engine as phase 4 built it
     t0 = time.perf_counter()
     shard = shard_phase(e, ds, dev, full, t_start)
@@ -2929,7 +3131,8 @@ def main(argv=None) -> int:
     launches = {"full": full["launches"], "serve": serve["launches"],
                 "ops": opsr["launches"], "disk": disk["launches"],
                 "oracles": oracles["launches"], "shard": shard["launches"],
-                "lm": lmr["launches"], "train": trn["launches"]}
+                "lm": lmr["launches"], "train": trn["launches"],
+                "mesh": meshr["launches"]}
     rows = []
     for name, (key, source, replaces) in KERNELS.items():
         count = launches[LAUNCH_PHASE[name]][name]
@@ -2958,7 +3161,7 @@ def main(argv=None) -> int:
           "disk_phase_s": disk["seconds"],
           "oracle_phase_s": oracles["seconds"],
           "shard_phase_s": shard["seconds"], "lm_phase_s": lmr["seconds"],
-          "train_phase_s": trn["seconds"],
+          "train_phase_s": trn["seconds"], "mesh_phase_s": meshr["seconds"],
           "shard_build_cut": shard["build"]["cut"],
           "oracle_pq_scan_launches_per_hop_step":
               oracles["distance_fn"]["pq_scan_launches_per_hop_step"],

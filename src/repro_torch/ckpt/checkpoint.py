@@ -32,9 +32,9 @@ killed writer are removed by :func:`reap_tmp`. Manifests digest with
 sha256; md5 manifests of older writers still verify (the digest key names
 the algorithm).
 
-Restoring returns numpy arrays; placing them on a device is the caller's
-step. Sharded restore (a ``shardings`` argument) comes with sharding
-(ROADMAP queue A, item 7).
+Restoring returns numpy arrays, or with ``shardings`` (a tree of
+``launch.shardings.NamedSharding`` shaped as the target) tensors placed
+on each leaf's sharding: an unsharded checkpoint restores onto any mesh.
 """
 from __future__ import annotations
 
@@ -219,11 +219,14 @@ def _verify_leaf(path: str, meta: dict, leaf_path: str):
 
 
 def restore(ckpt_dir: str, step: int, target_tree: Any,
-            verify: bool = True) -> Any:
+            shardings: Any = None, verify: bool = True) -> Any:
     """Restore step ``step`` into the structure of ``target_tree``, whose
     leaves carry ``.shape`` and ``.dtype`` (numpy arrays or
-    :class:`ArraySpec`). Returns numpy arrays. Integrity failures (missing
-    or truncated leaf, checksum mismatch, shape or dtype drift) raise
+    :class:`ArraySpec`). Returns numpy arrays; with ``shardings`` (same
+    structure, leaves with a ``place`` method: ``NamedSharding``) each
+    leaf is checked against its sharding and placed on its device as a
+    tensor. Integrity failures (missing or truncated leaf, checksum
+    mismatch, shape or dtype drift) raise
     :class:`CheckpointCorruptionError`."""
     path = os.path.join(ckpt_dir, f"step_{step}")
     manifest_fn = os.path.join(path, "manifest.json")
@@ -237,8 +240,11 @@ def restore(ckpt_dir: str, step: int, target_tree: Any,
         raise CheckpointCorruptionError(
             f"checkpoint has {len(manifest['leaves'])} leaves, "
             f"target {len(targets)}")
+    places = [None] * len(targets) if shardings is None else \
+        [leaf for _, leaf in _flatten(shardings)]
+    assert len(places) == len(targets), (len(places), len(targets))
     out = []
-    for meta, tgt in zip(manifest["leaves"], targets):
+    for meta, tgt, shd in zip(manifest["leaves"], targets, places):
         fn = os.path.join(path, meta["file"])
         if verify:
             _verify_leaf(fn, meta, meta["path"])
@@ -253,7 +259,7 @@ def restore(ckpt_dir: str, step: int, target_tree: Any,
         if np.dtype(arr.dtype) != np.dtype(tgt.dtype):
             raise CheckpointCorruptionError(
                 f"{meta['path']}: dtype {arr.dtype} vs target {tgt.dtype}")
-        out.append(arr)
+        out.append(arr if shd is None else shd.place(arr))
     return tree_unflatten(target_tree, out)
 
 
@@ -286,7 +292,7 @@ class CheckpointManager:
     def latest(self) -> Optional[int]:
         return latest_step(self.ckpt_dir)
 
-    def restore(self, target_tree, step=None):
+    def restore(self, target_tree, shardings=None, step=None):
         step = step if step is not None else self.latest()
         assert step is not None, f"no checkpoint in {self.ckpt_dir}"
-        return step, restore(self.ckpt_dir, step, target_tree)
+        return step, restore(self.ckpt_dir, step, target_tree, shardings)

@@ -23,11 +23,10 @@ import torch
 
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.device import resolve_device
+from repro_torch.launch.roofline import HBM_BYTES_PER_S
 from repro_torch.models import lm
 from repro_torch.serve.decode import generate, make_decode_step, \
     make_prefill
-
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate
 
 
 def torch_ops(fn) -> int:

@@ -4,9 +4,14 @@ restart, straggler watchdog. Counterpart of ``repro.launch.train``.
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
       --steps 100 --smoke --device cpu --ckpt-dir ckpt
 
-Runs on the card unless ``--device cpu`` is given. ``--mesh local`` (one
-device) is the only layout: ``single`` and ``multi`` need the port's mesh
-tooling (ROADMAP A3) and raise.
+Runs on the card unless ``--device cpu`` is given. ``--mesh local`` lays
+a (1, device count) mesh over the one device the port trains on
+(``launch.mesh.make_local_mesh``), with ``launch.shardings.Rules(fsdp=not
+--smoke)``: the parameter specs are checked against the parameters and
+give the bytes each device of that layout would hold. ``--mesh single``
+and ``multi`` ask for the production mesh (16 × 16, or 2 × 16 × 16), which
+needs as many distinct cards and raises with both counts otherwise, as
+the JAX launcher does.
 
 A failing step restores the latest checkpoint and retries, up to
 ``--max-retries``; ``--fail-at-step K`` makes step K fail once, before its
@@ -19,7 +24,8 @@ the saved step and takes that batch twice).
 ``main`` returns its numbers: the loss of each step, step seconds (host
 clock, the device synchronised by reading the loss) and their median from
 the second step on, tokens/s, parameters, the step's bound (8 · params ·
-tokens FLOPs over the H100's dense bfloat16 rate) and on the card its peak
+tokens FLOPs over the H100's dense bfloat16 rate, ``launch.roofline``),
+the mesh and its per-device parameter bytes, and on the card its peak
 memory. :func:`count_step_ops` counts a step's PyTorch calls.
 """
 from __future__ import annotations
@@ -38,14 +44,15 @@ from repro_torch.configs import get_config, smoke_config
 from repro_torch.data.pipeline import Prefetcher, StepWatchdog
 from repro_torch.data.tokens import lm_batch
 from repro_torch.device import resolve_device
+from repro_torch.launch import shardings
+from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
+from repro_torch.launch.roofline import BF16_FLOPS
 from repro_torch.launch.serve import torch_ops
-from repro_torch.models import lm
+from repro_torch.models import convert, lm
 from repro_torch.models.common import ModelConfig
 from repro_torch.train import OptConfig, init_opt_state, make_train_step
 from repro_torch.train.train_loop import load_train_state, train_state_tree
 from repro_torch.utils.tree import tree_map
-
-BF16_FLOPS = 989e12      # H100 SXM dense bfloat16 tensor-core rate
 
 
 def narrow_config(cfg: ModelConfig) -> ModelConfig:
@@ -89,19 +96,25 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
     args = ap.parse_args(argv)
-    if args.mesh != "local":
-        raise NotImplementedError(
-            f"--mesh {args.mesh} needs the port's mesh tooling (ROADMAP "
-            "A3); --mesh local trains on one device")
 
     dev = resolve_device(args.device)
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.mesh == "local":
+        n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
+        mesh = make_local_mesh(1, n_dev, dev)
+    else:
+        mesh = make_production_mesh(multi_pod=args.mesh == "multi",
+                                    device=dev)
+    rules = shardings.Rules(mesh=mesh, fsdp=not args.smoke)
     ocfg = OptConfig(lr=1e-3, warmup_steps=10, total_steps=args.steps)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    params = lm.init_lm(cfg, 0, dev)
+    params = lm.init_lm(cfg, 0, mesh.distinct_devices[0])
+    shapes = convert.param_shapes(cfg, params)
+    pspec = shardings.param_specs(rules, shapes)
+    shardings.check_specs(shapes, pspec, mesh)      # the placement
     opt = init_opt_state(params, ocfg)
-    step_fn = make_train_step(cfg, ocfg)
+    step_fn = make_train_step(cfg, ocfg, mesh=mesh, param_specs=pspec)
 
     mgr = CheckpointManager(args.ckpt_dir)
 
@@ -170,6 +183,9 @@ def main(argv=None) -> dict:
         "layers": cfg.n_layers, "params": n_params,
         "param_dtype": cfg.param_dtype, "compute_dtype": cfg.compute_dtype,
         "remat": cfg.remat, "tokens_per_step": tokens,
+        "mesh": dict(mesh.shape), "fsdp": rules.fsdp,
+        "param_bytes_per_device": shardings.sharded_bytes(shapes, pspec,
+                                                          mesh),
         "resumed_at": resumed, "final_step": start, "retries": retries,
         "losses": [losses[s] for s in sorted(losses)],
         "loss_steps": sorted(losses), "step_s": step_s,

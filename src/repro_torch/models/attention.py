@@ -20,6 +20,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.models import common
 from repro_torch.models.common import (ModelConfig, ParamGroup, cdtype,
                                        dense_init, pdtype, rotary_embed)
 
@@ -153,6 +154,40 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_t: int, dtype,
                    pos=torch.zeros((), dtype=torch.int32, device=device))
 
 
+def _sp_decode_core(cfg: ModelConfig, q, k_new, v_new, cache: KVCache,
+                    n_shards: int):
+    """Split-K (flash-decoding) path: the KV sequence split into
+    ``n_shards`` slices over the mesh's 'model' axis, each a ``narrow``
+    view of the cache; the owner's slice takes the new token, every slice
+    its partial softmax, and the logsumexp merge combines them
+    (``serve.sp_attention``). Returns (B, 1, Hq, Dh)."""
+    # imported here: the repro_torch.serve package imports the models
+    from repro_torch.serve import sp_attention as SP
+    t_shard = cache.k.shape[1] // n_shards
+    k_shards = [cache.k.narrow(1, s * t_shard, t_shard)
+                for s in range(n_shards)]
+    v_shards = [cache.v.narrow(1, s * t_shard, t_shard)
+                for s in range(n_shards)]
+    for s in range(n_shards):
+        SP.sp_cache_update(k_shards[s], v_shards[s], k_new, v_new,
+                           cache.pos, s)
+    return SP.sp_decode_attention(q, k_shards, v_shards, cache.pos,
+                                  cfg.n_kv)
+
+
+def _sp_shards(cfg: ModelConfig, cache: KVCache) -> int:
+    """The split-K shard count: the installed mesh's 'model' axis when
+    ``cfg.sp_decode`` is on, the cache is not a sliding-window ring and
+    the axis divides its length; 0 (the plain path) otherwise."""
+    if not cfg.sp_decode or cfg.window != 0:
+        return 0
+    mesh = common._ACT_CTX["mesh"]
+    if mesh is None or "model" not in mesh.axis_names \
+            or cache.k.shape[1] % mesh.shape["model"]:
+        return 0
+    return mesh.shape["model"]
+
+
 def decode_attention(p: AttnParams, x, cache: KVCache, cfg: ModelConfig):
     """One-token decode. x: (B, 1, D). Returns (out (B,1,D), cache), the
     cache updated in place: the new token's k/v written at its slot and
@@ -160,14 +195,23 @@ def decode_attention(p: AttnParams, x, cache: KVCache, cfg: ModelConfig):
 
     Sliding-window caches are ring buffers indexed by pos % window; a full
     cache clamps the slot to its last row, as the JAX package's
-    ``dynamic_update_slice`` does. ``cfg.sp_decode`` takes this path: it
-    needs a mesh, and the port has none."""
+    ``dynamic_update_slice`` does. With ``cfg.sp_decode`` under an
+    installed mesh (``common.set_activation_sharding``) whose 'model' axis
+    divides a full cache's length, the split-K path
+    (:func:`_sp_decode_core`) runs instead."""
     b = x.shape[0]
     hq, hkv, dh = cfg.n_heads, cfg.n_kv, cfg.head_dim
     g = hq // hkv
     pos = cache.pos
     positions = pos.expand(b, 1)
     q, k_new, v_new = _project_qkv(p, x, cfg, positions)
+
+    n_shards = _sp_shards(cfg, cache)
+    if n_shards:
+        out = _sp_decode_core(cfg, q, k_new, v_new, cache, n_shards)
+        out = out.reshape(b, 1, hq * dh) @ p.wo.to(x.dtype)
+        pos.add_(1)
+        return out, cache
 
     t_cache = cache.k.shape[1]
     slot = pos % t_cache if cfg.window > 0 else pos.clamp(max=t_cache - 1)

@@ -1,8 +1,11 @@
 """Model configuration and shared building blocks (norms, rotary, init).
 
-Counterpart of ``repro.models.common``, without its activation-sharding
-context: the port has no mesh, and without one ``constrain_dims`` and
-``shard_batch_dim`` are the identity.
+Counterpart of ``repro.models.common``, with its activation-sharding
+context (:func:`set_activation_sharding`, :func:`constrain_dims`,
+:func:`shard_batch_dim`). The port is single-controller: a constraint
+places nothing, so these resolve and check the spec JAX would constrain
+to and return their input, as ``jax.lax.with_sharding_constraint`` returns
+its input's values.
 """
 from __future__ import annotations
 
@@ -64,7 +67,7 @@ class ModelConfig:
     attn_chunk_kv: int = 1024
     attn_chunk_threshold: int = 2048   # use blockwise above this seq len
     vision_prefix: int = 0          # vlm: number of patch-embedding positions
-    sp_decode: bool = False         # split-K decode over a mesh (none here)
+    sp_decode: bool = False         # split-K decode over the mesh's model axis
     decode_unroll: bool = False     # accepted; changes nothing in the port
 
     @property
@@ -168,3 +171,78 @@ def rotary_embed(x: torch.Tensor, positions: torch.Tensor, theta: float):
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# activation-sharding context (set by the launcher before a step runs)
+# ---------------------------------------------------------------------------
+
+_ACT_CTX = {"mesh": None, "dp": None, "sp": None}
+
+
+def set_activation_sharding(mesh, dp_axes, seq_axis=None):
+    """Install the mesh (``launch.mesh.Mesh``) that activation constraints
+    and the split-K decode (``attention._sp_decode_core``) read.
+    ``seq_axis`` names the axis that shards the residual stream's
+    sequence dim between blocks (Megatron-style sequence parallelism)."""
+    _ACT_CTX["mesh"] = mesh
+    _ACT_CTX["dp"] = dp_axes
+    _ACT_CTX["sp"] = seq_axis
+
+
+def clear_activation_sharding():
+    _ACT_CTX["mesh"] = None
+    _ACT_CTX["dp"] = None
+    _ACT_CTX["sp"] = None
+
+
+def _resolve(mesh, axis_kind):
+    if axis_kind == "dp":
+        return _ACT_CTX["dp"]
+    if axis_kind == "mp":
+        return "model" if "model" in mesh.axis_names else None
+    if axis_kind == "sp":
+        return _ACT_CTX["sp"]
+    if axis_kind == "all":      # fully-sharded token dims (dp × model)
+        dp = _ACT_CTX["dp"] or ()
+        mp = ("model",) if "model" in mesh.axis_names else ()
+        return tuple(dp) + mp if (dp or mp) else None
+    return None
+
+
+def activation_spec(shape, *axis_kinds) -> Optional[tuple]:
+    """The spec :func:`constrain_dims` constrains a tensor of ``shape``
+    to, one entry per dim (an axis name, a tuple of names or None), by
+    per-dim kind ('dp'|'mp'|'sp'|'all'|None); a dim that does not divide
+    over its axes replicates. None without an installed mesh."""
+    mesh = _ACT_CTX["mesh"]
+    if mesh is None:
+        return None
+    spec = []
+    for dim, kind in enumerate(axis_kinds[:len(shape)]):
+        axes = _resolve(mesh, kind)
+        if axes is None:
+            spec.append(None)
+            continue
+        size = 1
+        for a in (axes if isinstance(axes, tuple) else (axes,)):
+            size *= mesh.shape[a]
+        spec.append(axes if shape[dim] % size == 0 else None)
+    return tuple(spec + [None] * (len(shape) - len(spec)))
+
+
+def constrain_dims(x, *axis_kinds):
+    """``with_sharding_constraint`` by per-dim kind: the spec is resolved
+    (:func:`activation_spec`) and ``x`` returned, since one controller
+    holds the whole tensor; the identity without context."""
+    activation_spec(x.shape, *axis_kinds)
+    return x
+
+
+def shard_batch_dim(x, dim: int = 0):
+    """Constrain dim 0 to DP (and, when enabled, the next dim to SP)."""
+    kinds = [None] * x.ndim
+    kinds[dim] = "dp"
+    if dim + 1 < x.ndim and _ACT_CTX["sp"] is not None and x.ndim >= 3:
+        kinds[dim + 1] = "sp"
+    return constrain_dims(x, *kinds)

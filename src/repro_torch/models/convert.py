@@ -29,6 +29,7 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as S
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.lm import TransformerLM
+from repro_torch.utils.tree import tree_map
 
 _GROUPS = {"attn": A.AttnParams, "ssm": S.SSMParams, "mlp": M.MLPParams,
            "moe": MOE.MoEParams}
@@ -95,10 +96,10 @@ def caches_from_numpy(cfg: ModelConfig, caches: list, device=None) -> list:
     return out
 
 
-def caches_to_numpy(cfg: ModelConfig, caches: list) -> list:
-    """The port's caches in the JAX package's stacked layout, as numpy:
-    ``out[i][j][name]`` is the cache ``NamedTuple`` with a leading
-    ``repeat`` dim on every field."""
+def caches_to_repro_tree(cfg: ModelConfig, caches: list) -> list:
+    """The port's caches in the JAX package's stacked layout, tensors kept
+    (``meta`` ones too): ``out[i][j][name]`` is the cache ``NamedTuple``
+    with a leading ``repeat`` dim on every field."""
     out = []
     for i, (repeat, period) in enumerate(cfg.segments):
         seg = []
@@ -106,12 +107,17 @@ def caches_to_numpy(cfg: ModelConfig, caches: list) -> list:
             entry = {}
             for name in caches[i][0][j]:
                 cls = _CACHES[name]
-                entry[name] = cls(*(np.stack([to_numpy(getattr(
-                    caches[i][r][j][name], f)) for r in range(repeat)])
+                entry[name] = cls(*(torch.stack([getattr(
+                    caches[i][r][j][name], f) for r in range(repeat)])
                     for f in cls._fields))
             seg.append(entry)
         out.append(tuple(seg))
     return out
+
+
+def caches_to_numpy(cfg: ModelConfig, caches: list) -> list:
+    """:func:`caches_to_repro_tree` as numpy."""
+    return tree_map(to_numpy, caches_to_repro_tree(cfg, caches))
 
 
 def _parts(kind: str) -> tuple:
@@ -175,6 +181,15 @@ def to_repro_tree(cfg: ModelConfig, named: dict) -> dict:
             seg.append(block)
         out["segments"].append(tuple(seg))
     return out
+
+
+def param_shapes(cfg: ModelConfig, model: TransformerLM) -> dict:
+    """``model``'s parameters as ``meta`` tensors (shapes and dtypes only)
+    in the JAX package's params layout: the tree the sharding rules
+    (``launch.shardings``) read."""
+    return to_repro_tree(cfg, {
+        n: torch.empty(p.shape, dtype=p.dtype, device="meta")
+        for n, p in model.named_parameters()})
 
 
 def from_repro_tree(cfg: ModelConfig, tree: dict) -> dict:

@@ -32,7 +32,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks
 from repro_torch.models.common import (ModelConfig, cdtype, dense_init,
-                                       frozen, pdtype, rms_norm)
+                                       frozen, pdtype, rms_norm,
+                                       shard_batch_dim)
 from repro_torch.models.ssm import SSMParams
 
 
@@ -120,6 +121,7 @@ def lm_forward(params: TransformerLM, cfg: ModelConfig, batch: dict):
                               use_reentrant=False)
         else:
             x, a = blocks.block_forward(kind, block, x, cfg)
+        x = shard_batch_dim(x)            # keep batch on the DP axes
         aux_total = blocks._add_aux(aux_total, a)
     return _head(params, cfg, x), aux_total
 

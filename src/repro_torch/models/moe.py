@@ -15,11 +15,14 @@ Aux losses: load-balancing (Switch) + router z-loss, returned to the caller.
 """
 from __future__ import annotations
 
+import os
+
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import common
 from repro_torch.models.common import (ModelConfig, MoEConfig, ParamGroup,
-                                       dense_init, pdtype)
+                                       constrain_dims, dense_init, pdtype)
 
 
 class MoEParams(ParamGroup):
@@ -44,9 +47,25 @@ def _capacity(mcfg: MoEConfig, group: int) -> int:
 
 
 def _f_split(e: int, f: int) -> int:
-    """How many parts each expert's d_ff splits into. 1 here: the JAX
-    package splits only to fit a mesh's model axis, and the port has no
-    mesh (tests patch it to check the split is exact)."""
+    """Smallest s with (e·s) divisible by the installed mesh's model axis
+    and f % s == 0: each expert's d_ff splits into s parts so the expert
+    dim shards over that axis.
+
+    Gated off by default, as in the JAX package (splitting inside the
+    layer re-shards the expert weights on every layer there); set
+    ``REPRO_MOE_FSPLIT=1`` to turn it on. A split gives the same layer
+    output (gated FFNs are elementwise in d_ff)."""
+    if not os.environ.get("REPRO_MOE_FSPLIT"):
+        return 1
+    mesh = common._ACT_CTX["mesh"]
+    if mesh is None or "model" not in mesh.axis_names:
+        return 1
+    mp = mesh.shape["model"]
+    if e % mp == 0:
+        return 1
+    for s in range(2, mp + 1):
+        if (e * s) % mp == 0 and f % s == 0:
+            return s
     return 1
 
 
@@ -96,6 +115,7 @@ def _group_moe(p: MoEParams, x, mcfg: MoEConfig, compute_dtype):
     dispatch.scatter_(3, slot, w.sum(2)[..., None])
     combine.scatter_(3, slot, (w * gate_vals[..., None].to(compute_dtype))
                      .sum(2)[..., None])
+    dispatch = constrain_dims(dispatch, "dp", None, None, None)
 
     # expert f-splitting (exact for gated FFNs: f is elementwise in
     # gate/up, summed in down)
@@ -113,10 +133,13 @@ def _group_moe(p: MoEParams, x, mcfg: MoEConfig, compute_dtype):
         combine = torch.repeat_interleave(combine, split, dim=2)
 
     xin = torch.einsum("bsec,bsd->ecd", dispatch, x.to(compute_dtype))
+    xin = constrain_dims(xin, "mp", "dp", None)             # EP × capacity-DP
     h = F.silu(torch.einsum("ecd,edf->ecf", xin, wg.to(compute_dtype))) \
         * torch.einsum("ecd,edf->ecf", xin, wu.to(compute_dtype))
     hout = torch.einsum("ecf,efd->ecd", h, wd.to(compute_dtype))
+    hout = constrain_dims(hout, "mp", "dp", None)
     out = torch.einsum("bsec,ecd->bsd", combine, hout)
+    out = constrain_dims(out, "dp", None, None)
 
     # aux: load-balance (mean prob * mean assignment) + z-loss
     me = probs.reshape(-1, e).mean(0)                          # (E,)

@@ -2,9 +2,10 @@
 precision, AdamW, metrics. Counterpart of ``repro.train.train_loop``.
 
 Remat happens inside the model (``cfg.remat``: each block's forward runs
-under ``torch.utils.checkpoint``). ``make_train_step``'s ``mesh`` and
-``param_specs`` arguments, which place the JAX package's accumulator on a
-device mesh, come with the port's mesh tooling (ROADMAP A3).
+under ``torch.utils.checkpoint``). ``make_train_step`` takes the JAX
+package's ``mesh`` and ``param_specs``: on a single controller the mesh
+must hold one device (a local mesh), and the sharding constraints are
+checked, not applied, so the step equals the meshless one.
 
 :func:`train_state_tree` and :func:`load_train_state` lay a training state
 out as the JAX launcher checkpoints it, ``{"params": <init_lm tree>,
@@ -16,6 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.launch import shardings
+from repro_torch.launch.mesh import dp_size
 from repro_torch.models import convert, lm
 from repro_torch.models.common import ModelConfig
 from repro_torch.train import optim
@@ -73,17 +76,54 @@ def loss_and_grads(params: lm.TransformerLM, cfg: ModelConfig,
         {name: g / microbatches for name, g in zip(named, grads)}
 
 
+def _check_layout(cfg: ModelConfig, mesh, param_specs, params, batch,
+                  microbatches: int) -> None:
+    """The JAX step's sharding constraints, checked: the microbatch split
+    keeps its batch dim over the DP axes, and the accumulator (shaped as
+    the parameters) divides as ``param_specs`` says."""
+    if microbatches > 1 and "data" in mesh.axis_names:
+        for k, x in batch.items():
+            if (x.shape[0] // microbatches) % dp_size(mesh):
+                raise ValueError(
+                    f"batch {k!r}: {x.shape[0]} rows in {microbatches} "
+                    f"microbatches do not divide over {dp_size(mesh)} "
+                    "DP shards")
+    if param_specs is not None:
+        shardings.check_specs(convert.param_shapes(cfg, params),
+                              param_specs, mesh)
+
+
 def make_train_step(cfg: ModelConfig, ocfg: optim.OptConfig,
-                    microbatches: int = 1, acc_dtype=torch.float32):
+                    microbatches: int = 1, mesh=None, param_specs=None,
+                    acc_dtype=torch.float32):
     """Returns ``train_step(params, opt_state, batch) -> (params,
     opt_state, metrics)``: :func:`loss_and_grads`, then one
     :func:`~repro_torch.train.optim.adamw_update`, which updates the
     :class:`TransformerLM`'s parameters in place. Metrics: ``loss``,
     ``grad_norm``, ``lr``, and with one microbatch ``lm_loss``'s own
-    (``nll``, ``lb_loss``, ``z_loss``, ``drop_frac``), as 0-d tensors."""
+    (``nll``, ``lb_loss``, ``z_loss``, ``drop_frac``), as 0-d tensors.
+
+    ``mesh`` (``launch.mesh.Mesh``) and ``param_specs`` (a spec tree in
+    ``repro``'s layout, ``launch.shardings.param_specs``) are the JAX
+    step's: its first call checks the constraints that step places (see
+    :func:`_check_layout`). A single controller keeps every tensor whole
+    on one device, so the mesh must hold one device; a mesh over distinct
+    devices raises, since training across cards needs a multi-card
+    machine and one process per card."""
+    if mesh is not None and len(mesh.distinct_devices) > 1:
+        raise NotImplementedError(
+            f"the mesh spans {len(mesh.distinct_devices)} distinct devices: "
+            "training across cards needs a multi-card machine (one process "
+            "per card); a local mesh (launch.mesh.make_local_mesh) trains "
+            "on one")
+    checked = []
 
     def train_step(params: lm.TransformerLM, opt_state: optim.OptState,
                    batch: dict):
+        if mesh is not None and not checked:
+            _check_layout(cfg, mesh, param_specs, params, batch,
+                          microbatches)
+            checked.append(True)
         loss, metrics, grads = loss_and_grads(params, cfg, batch,
                                               microbatches, acc_dtype)
         _, new_opt, opt_metrics = optim.adamw_update(

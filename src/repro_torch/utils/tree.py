@@ -63,39 +63,44 @@ def tree_leaves(tree, is_leaf: Callable | None = None) -> list:
     return [leaf for _, leaf in tree_flatten_with_path(tree, "", is_leaf)]
 
 
-def _rebuild(tree, leaves: list):
+def _rebuild(tree, leaves: list, is_leaf: Callable | None = None):
     if tree is None:
         return None
+    if is_leaf is not None and is_leaf(tree):
+        return leaves.pop(0)
     if isinstance(tree, nn.Module):
         tree = dict(tree.named_parameters())
     if isinstance(tree, dict):
-        return {k: _rebuild(tree[k], leaves) for k in sorted(tree)}
+        return {k: _rebuild(tree[k], leaves, is_leaf) for k in sorted(tree)}
     if _is_namedtuple(tree):
         aux = getattr(type(tree), "tree_aux", ())
         return type(tree)(**{f: getattr(tree, f) if f in aux
-                             else _rebuild(getattr(tree, f), leaves)
+                             else _rebuild(getattr(tree, f), leaves, is_leaf)
                              for f in tree._fields})
     if isinstance(tree, (tuple, list)):
-        return type(tree)(_rebuild(c, leaves) for c in tree)
+        return type(tree)(_rebuild(c, leaves, is_leaf) for c in tree)
     return leaves.pop(0)
 
 
-def tree_unflatten(like, leaves: list):
+def tree_unflatten(like, leaves: list, is_leaf: Callable | None = None):
     """``like``'s structure with its leaves replaced, in flattening order,
-    by ``leaves``. A module becomes the dict of its parameter names."""
+    by ``leaves``. A module becomes the dict of its parameter names; a
+    node of ``like`` for which ``is_leaf`` is true is one leaf."""
     rest = list(leaves)
-    out = _rebuild(like, rest)
+    out = _rebuild(like, rest, is_leaf)
     assert not rest, f"{len(rest)} leaves left over"
     return out
 
 
-def tree_map(fn: Callable, tree, *rest) -> Any:
+def tree_map(fn: Callable, tree, *rest, is_leaf: Callable | None = None) \
+        -> Any:
     """``fn`` over the leaves of ``tree`` and of the trees in ``rest``,
-    which must hold their leaves in the same order."""
-    flat = [tree_leaves(t) for t in (tree, *rest)]
+    which must hold their leaves in the same order (``is_leaf`` as in
+    :func:`tree_flatten_with_path`)."""
+    flat = [tree_leaves(t, is_leaf) for t in (tree, *rest)]
     assert all(len(f) == len(flat[0]) for f in flat), \
         [len(f) for f in flat]
-    return tree_unflatten(tree, [fn(*xs) for xs in zip(*flat)])
+    return tree_unflatten(tree, [fn(*xs) for xs in zip(*flat)], is_leaf)
 
 
 def _itemsize(dtype) -> int:

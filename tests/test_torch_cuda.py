@@ -677,3 +677,80 @@ def test_threefry_and_int8_quantizers_card_equal_cpu(cuda):
     assert torch.equal(dmean["a"].cpu(), mean["a"])
     for d, w in zip(dnew, new):
         assert torch.equal(d["a"].cpu(), w["a"])
+
+
+def test_sp_decode_card_matches_cpu(cuda):
+    """qwen2-1.5b's smoke config with ``sp_decode`` under a local (1, 4)
+    mesh on the card: greedy tokens equal the CPU's plain decode and each
+    step's logits within 1e-4 (float32, TF32 off); split-K attention on
+    card tensors against the CPU's within 2e-5, and the owner-only cache
+    update on the card equal to the CPU's."""
+    import copy
+    import dataclasses
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.common import (clear_activation_sharding,
+                                           set_activation_sharding)
+    from repro_torch.serve import generate
+    from repro_torch.serve import sp_attention as SP
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    cfg = smoke_config("qwen2-1.5b")
+    cpu = lm.init_lm(cfg, seed=0, device="cpu")
+    card = copy.deepcopy(cpu).to(cuda)
+    prompts = np.random.default_rng(4).integers(0, cfg.vocab, (3, 20))
+    want = generate(cpu, cfg, prompts, 10, max_t=40)
+    sp_cfg = dataclasses.replace(cfg, sp_decode=True)
+    try:
+        set_activation_sharding(make_local_mesh(1, 4, cuda), ("data",))
+        got = generate(card, sp_cfg, prompts, 10, max_t=40)
+        _, caches = lm.lm_prefill(card, sp_cfg, {"tokens": torch.as_tensor(
+            prompts).to(cuda)}, 40)
+        sp_logits, _ = lm.lm_decode_step(card, caches, sp_cfg,
+                                         got[:, :1])
+    finally:
+        clear_activation_sharding()
+    assert torch.equal(got.cpu(), want)
+    _, caches = lm.lm_prefill(cpu, cfg, {"tokens": torch.as_tensor(prompts)},
+                              40)
+    plain, _ = lm.lm_decode_step(cpu, caches, cfg, want[:, :1])
+    torch.testing.assert_close(sp_logits.cpu(), plain, rtol=1e-4, atol=1e-4)
+
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, s).astype(np.float32))
+               for s in ((2, 1, 8, 16), (2, 64, 4, 16), (2, 64, 4, 16)))
+    pos = torch.tensor(40, dtype=torch.int32)
+    parts = [(x.narrow(1, s * 16, 16)) for x in (k, v) for s in range(4)]
+    want = SP.sp_decode_attention(q, parts[:4], parts[4:], pos, 4)
+    cq, ck, cv = q.to(cuda), k.to(cuda), v.to(cuda)
+    got = SP.sp_decode_attention(
+        cq, [ck.narrow(1, s * 16, 16) for s in range(4)],
+        [cv.narrow(1, s * 16, 16) for s in range(4)], pos.to(cuda), 4)
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-5, atol=2e-5)
+    for where in ("cpu", cuda):
+        kc = torch.zeros((1, 32, 2, 4), device=where)
+        vc = torch.zeros_like(kc)
+        for s in range(4):
+            SP.sp_cache_update(kc.narrow(1, s * 8, 8), vc.narrow(1, s * 8, 8),
+                               torch.ones((1, 1, 2, 4), device=where),
+                               torch.full((1, 1, 2, 4), 2.0, device=where),
+                               torch.tensor(13, dtype=torch.int32,
+                                            device=where), s)
+        assert int((kc != 0).sum()) == 8 and bool((kc[0, 13] == 1).all())
+        assert bool((vc[0, 13] == 2).all())
+
+
+def test_launch_train_local_mesh_on_card(cuda, tmp_path):
+    """``launch.train --mesh local`` on the card: a (1, device count) mesh
+    over it, its per-device parameter bytes, finite losses; ``--mesh
+    single`` needs 256 cards and raises with both counts."""
+    from repro_torch.launch import train
+    common = ["--arch", "qwen2-1.5b", "--smoke", "--steps", "2",
+              "--batch", "2", "--seq", "16", "--ckpt-dir", str(tmp_path)]
+    res = train.main(common + ["--mesh", "local"])
+    assert res["mesh"] == {"data": 1, "model": torch.cuda.device_count()}
+    assert 0 < res["param_bytes_per_device"] <= 4 * res["params"]
+    assert all(np.isfinite(res["losses"])) and res["device"] == "cuda"
+    with pytest.raises(ValueError, match="must be >= the product of "
+                                         "mesh_shape \\(16, 16\\)"):
+        train.main(common + ["--mesh", "single"])

@@ -76,7 +76,11 @@ def test_port_imports_no_jax_no_repro():
                 "repro_torch.train", "repro_torch.train.optim",
                 "repro_torch.train.train_loop",
                 "repro_torch.train.grad_compress",
-                "repro_torch.launch.train"}
+                "repro_torch.launch.train", "repro_torch.launch.mesh",
+                "repro_torch.launch.shardings", "repro_torch.launch.roofline",
+                "repro_torch.launch.dryrun", "repro_torch.launch.dryrun_ann",
+                "repro_torch.launch.roofline_table",
+                "repro_torch.serve.sp_attention"}
     assert expected <= set(res["modules"]), expected - set(res["modules"])
 
 

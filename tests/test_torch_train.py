@@ -540,7 +540,8 @@ def test_launch_train_runs_and_resumes(tmp_path, capsys):
 
 
 def test_launch_train_refuses_mesh_and_counts_ops(tmp_path):
-    with pytest.raises(NotImplementedError, match="A3"):
+    with pytest.raises(ValueError, match="Number of devices 1 must be >= "
+                                         "the product of mesh_shape"):
         _launch(tmp_path, "--mesh", "single")
     cfg = smoke_config("qwen2-1.5b")
     deep = dataclasses.replace(cfg, segments=((6, ("attn_mlp",)),),
