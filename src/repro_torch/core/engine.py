@@ -40,6 +40,7 @@ from repro_torch.core.selectors import (InMemory, QueryFilter, Selector,
                                         stack_filters)
 from repro_torch.device import resolve_device
 from repro_torch.storage import DiskRecordStore, StorageConfig
+from repro_torch.utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,8 +123,12 @@ class QueryStats:
     degraded: np.ndarray
     disk: dict | None = None  # disk-tier counter delta for this batch
                               # (cache hits/misses/hit_rate, pages_read,
-                              # readahead, gated_skips, measured p50 page
-                              # latency); None on the device backend
+                              # readahead, gated_skips, the host µs of
+                              # fetch and of pread); None on the device
+                              # backend
+    trace: dict | None = None  # the batch's tally (utils/trace.py): groups,
+                               # hop steps, live and dispatched row-hops,
+                               # host seconds by span, device waits
 
     @classmethod
     def empty(cls) -> "QueryStats":
@@ -132,7 +137,8 @@ class QueryStats:
                    dist_comps=z, est_compute=np.zeros(0), hops=z,
                    fp_explored=z, explored=z, n_valid=z,
                    selectivity=np.zeros(0), precision_in=np.zeros(0),
-                   faults=z, retries=z, degraded=z)
+                   faults=z, retries=z, degraded=z,
+                   trace=trace.new_tally())
 
 
 class FilteredANNEngine:
@@ -582,6 +588,12 @@ class FilteredANNEngine:
         so no valid record can be excluded), results are exactly verified
         (no false positives), and every query is flagged in
         ``stats.degraded`` with mechanism ``"scan"``."""
+        with trace.batch() as tally, trace.span("engine.scan"):
+            out_ids, out_d, stats = self._scan(queries, selectors, scfgs)
+        stats.trace = tally
+        return out_ids, out_d, stats
+
+    def _scan(self, queries, selectors, scfgs):
         queries = np.asarray(queries, np.float32)
         if queries.shape[1] != self.store.dim:
             pad = self.store.dim - queries.shape[1]
@@ -620,15 +632,15 @@ class FilteredANNEngine:
                 ids, dists, io, nv = prefilter._rerank_verify(
                     self.store, qf, q_dev[i], top_ids, pp)
             else:
-                tid = top_ids.cpu().numpy()
+                tid = trace.to_host(top_ids).numpy()
                 ids, dists, io, nv = prefilter._verify_fetched(
                     qf, q_dev[i], top_ids,
                     ds.fetch_host(np.where(tid >= 0, tid, 0)), pp,
                     self.store.pages_std)
             est = cost_model.approx_scan_cost(
                 self.cost_inputs(plans[i], scfg), rerank)
-            out_ids[i] = ids.cpu().numpy()
-            out_d[i] = dists.cpu().numpy()
+            out_ids[i] = trace.to_host(ids).numpy()
+            out_d[i] = trace.to_host(dists).numpy()
             stats.io_pages[i] = int(io)
             stats.est_io_pages[i] = est.io_pages
             stats.dist_comps[i] = int(self.codes.shape[0])
@@ -697,8 +709,16 @@ class FilteredANNEngine:
 
         Each query carries its own ``SearchConfig``; queries are grouped by
         (mechanism, pool-size bucket, config) and executed as coalesced
-        batches. Returns ``(ids_list, dists_list, QueryStats)``.
+        batches. Returns ``(ids_list, dists_list, QueryStats)``;
+        ``QueryStats.trace`` is the batch's tally (``utils/trace.py``).
         """
+        with trace.batch() as tally, trace.span("engine.execute"):
+            out_ids, out_d, stats = self._execute_groups(queries, selectors,
+                                                         scfgs)
+        stats.trace = tally
+        return out_ids, out_d, stats
+
+    def _execute_groups(self, queries, selectors, scfgs):
         queries = np.asarray(queries, np.float32)
         if queries.shape[1] != self.store.dim:
             pad = self.store.dim - queries.shape[1]
@@ -707,8 +727,9 @@ class FilteredANNEngine:
         assert len(selectors) == B and len(scfgs) == B
         cfg = self.config
 
-        plans = [s.plan(cfg.ql, cfg.cap, cfg.qr) for s in selectors]
-        routes = [self._route(p, sc) for p, sc in zip(plans, scfgs)]
+        with trace.span("engine.plan"):
+            plans = [s.plan(cfg.ql, cfg.cap, cfg.qr) for s in selectors]
+            routes = [self._route(p, sc) for p, sc in zip(plans, scfgs)]
 
         out_ids: list = [None] * B
         out_d: list = [None] * B
@@ -736,85 +757,97 @@ class FilteredANNEngine:
             eff = 1 << max(5, math.ceil(math.log2(max(r.effective_l, 1))))
             eff = min(eff, scfgs[i].max_pool)
             groups.setdefault((r.mechanism, eff, scfgs[i]), []).append(i)
+        trace.count(groups=len(groups))
 
         ds = self.disk_store
         disk_before = ds.snapshot() if ds is not None else None
         for (mech, eff_l, scfg), idxs in groups.items():
-            strict = scfg.policy in ("strict_in", "strict_pre", "basefilter")
-            sub_q = np.ascontiguousarray(queries[idxs])
-            sub_sel = [selectors[i] for i in idxs]
-            sub_qf = stack_filters([plans[i].qfilter for i in idxs])
-            if ds is not None:
-                # arm the disk tier with this group's knobs: the fault plan
-                # (its host draws mirror the hop step's ladder) and the
-                # read-ahead window (depth - 1 scales it)
-                ds.fault_plan = scfg.fault_plan
-                ds.prefetch_depth = scfg.prefetch_depth
-            if mech == "pre":
-                pp = prefilter.PrefilterParams(
-                    l_rerank=eff_l + scfg.l_rerank_delta, k=scfg.k)
-                res = prefilter.prefilter_search(
-                    self.store, self.codes, self.codebook, sub_sel, sub_qf,
-                    sub_q, pp, speculative=not strict,
-                    host_fetch=ds.fetch_host if ds is not None else None)
-                ids = res.ids.cpu().numpy()
-                dists = res.dists.cpu().numpy()
-                io = res.io_pages.numpy()
-                dc = res.dist_comps.numpy()
-                nv = res.n_valid.numpy()
-                for j, i in enumerate(idxs):
-                    out_ids[i] = ids[j]
-                    out_d[i] = dists[j]
-                    stats.io_pages[i] = int(io[j])
-                    stats.dist_comps[i] = int(dc[j])
-                    stats.n_valid[i] = int(nv[j])
-                continue
-            mode = {"in": "strict_in" if scfg.policy == "strict_in"
-                    else "spec_in", "post": "post"}[mech]
-            sp = search.SearchParams(
-                l_search=eff_l, k=scfg.k, beam_width=scfg.beam_width,
-                max_hops=scfg.max_hops, mode=mode, l_valid=scfg.l,
-                prefetch_depth=scfg.prefetch_depth,
-                fault_plan=scfg.fault_plan)
-            entries = None
-            seed_pages = np.zeros(len(idxs), np.int64)
-            if mode == "strict_in":
-                # strict in-filtering needs exactly-valid entry seeds; the
-                # attribute-index scan's pages are charged to the query
-                ents = np.full((len(idxs), 4), -1, np.int32)
-                for j in range(len(idxs)):
-                    seeds, pages = _strict_seed_ids(sub_sel[j], self.medoid,
-                                                    4)
-                    ents[j, :seeds.size] = seeds
-                    seed_pages[j] = pages
-                entries = ents
-            res = search.filtered_search_pipelined(
-                self.store, self.codes, self.codebook, self.mem, sub_qf,
-                sub_q, self.medoid, sp, entries=entries,
-                hop_chunk=scfg.hop_chunk,
-                fetch_fn=(ds.fetch_callable if ds is not None
-                          else search.local_fetch),
-                runner=self._runner)      # None on the disk backend
-            r = {f: getattr(res, f).cpu().numpy()
-                 for f in search.SearchResult._fields}
-            prefetch = np.array([plans[i].pages_prefetch for i in idxs]) \
-                if mode == "spec_in" else np.zeros(len(idxs), np.int64)
-            for j, i in enumerate(idxs):
-                out_ids[i] = r["ids"][j]
-                out_d[i] = r["dists"][j]
-                stats.io_pages[i] = int(r["io_pages"][j]) + int(
-                    seed_pages[j]) + int(prefetch[j])
-                stats.dist_comps[i] = int(r["dist_comps"][j])
-                stats.hops[i] = int(r["hops"][j])
-                stats.fp_explored[i] = int(r["fp_explored"][j])
-                stats.explored[i] = int(r["explored"][j])
-                stats.n_valid[i] = int(r["n_valid"][j])
-                stats.faults[i] = int(r["faults"][j])
-                stats.retries[i] = int(r["retries"][j])
-                stats.degraded[i] = int(r["degraded"][j])
+            with trace.span("engine.group", mechanism=mech, width=eff_l,
+                            rows=len(idxs)):
+                self._run_group(queries, selectors, plans, mech, eff_l, scfg,
+                                idxs, out_ids, out_d, stats)
         if ds is not None:
             stats.disk = ds.delta(disk_before, ds.snapshot())
         return out_ids, out_d, stats
+
+    def _run_group(self, queries, selectors, plans, mech, eff_l, scfg, idxs,
+                   out_ids, out_d, stats) -> None:
+        """One (mechanism, pool bucket, config) group of :meth:`execute`:
+        its answers and counters go into ``out_ids``, ``out_d``, ``stats``."""
+        ds = self.disk_store
+        strict = scfg.policy in ("strict_in", "strict_pre", "basefilter")
+        sub_q = np.ascontiguousarray(queries[idxs])
+        sub_sel = [selectors[i] for i in idxs]
+        sub_qf = stack_filters([plans[i].qfilter for i in idxs])
+        if ds is not None:
+            # arm the disk tier with this group's knobs: the fault plan
+            # (its host draws mirror the hop step's ladder) and the
+            # read-ahead window (depth - 1 scales it)
+            ds.fault_plan = scfg.fault_plan
+            ds.prefetch_depth = scfg.prefetch_depth
+        if mech == "pre":
+            pp = prefilter.PrefilterParams(
+                l_rerank=eff_l + scfg.l_rerank_delta, k=scfg.k)
+            res = prefilter.prefilter_search(
+                self.store, self.codes, self.codebook, sub_sel, sub_qf,
+                sub_q, pp, speculative=not strict,
+                host_fetch=ds.fetch_host if ds is not None else None)
+            ids = trace.to_host(res.ids).numpy()
+            dists = trace.to_host(res.dists).numpy()
+            io = res.io_pages.numpy()
+            dc = res.dist_comps.numpy()
+            nv = res.n_valid.numpy()
+            for j, i in enumerate(idxs):
+                out_ids[i] = ids[j]
+                out_d[i] = dists[j]
+                stats.io_pages[i] = int(io[j])
+                stats.dist_comps[i] = int(dc[j])
+                stats.n_valid[i] = int(nv[j])
+            return
+        mode = {"in": "strict_in" if scfg.policy == "strict_in"
+                else "spec_in", "post": "post"}[mech]
+        sp = search.SearchParams(
+            l_search=eff_l, k=scfg.k, beam_width=scfg.beam_width,
+            max_hops=scfg.max_hops, mode=mode, l_valid=scfg.l,
+            prefetch_depth=scfg.prefetch_depth,
+            fault_plan=scfg.fault_plan)
+        entries = None
+        seed_pages = np.zeros(len(idxs), np.int64)
+        if mode == "strict_in":
+            # strict in-filtering needs exactly-valid entry seeds; the
+            # attribute-index scan's pages are charged to the query
+            ents = np.full((len(idxs), 4), -1, np.int32)
+            for j in range(len(idxs)):
+                seeds, pages = _strict_seed_ids(sub_sel[j], self.medoid, 4)
+                ents[j, :seeds.size] = seeds
+                seed_pages[j] = pages
+            entries = ents
+        res = search.filtered_search_pipelined(
+            self.store, self.codes, self.codebook, self.mem, sub_qf,
+            sub_q, self.medoid, sp, entries=entries,
+            hop_chunk=scfg.hop_chunk,
+            fetch_fn=(ds.fetch_callable if ds is not None
+                      else search.local_fetch),
+            runner=self._runner)      # None on the disk backend
+        r = {f: trace.to_host(getattr(res, f)).numpy()
+             for f in search.SearchResult._fields}
+        # a row's hops count only the steps it was active in
+        trace.count(row_hops_live=int(r["hops"].sum()))
+        prefetch = np.array([plans[i].pages_prefetch for i in idxs]) \
+            if mode == "spec_in" else np.zeros(len(idxs), np.int64)
+        for j, i in enumerate(idxs):
+            out_ids[i] = r["ids"][j]
+            out_d[i] = r["dists"][j]
+            stats.io_pages[i] = int(r["io_pages"][j]) + int(
+                seed_pages[j]) + int(prefetch[j])
+            stats.dist_comps[i] = int(r["dist_comps"][j])
+            stats.hops[i] = int(r["hops"][j])
+            stats.fp_explored[i] = int(r["fp_explored"][j])
+            stats.explored[i] = int(r["explored"][j])
+            stats.n_valid[i] = int(r["n_valid"][j])
+            stats.faults[i] = int(r["faults"][j])
+            stats.retries[i] = int(r["retries"][j])
+            stats.degraded[i] = int(r["degraded"][j])
 
     # ------------------------------------------------------------------
     def search(self, queries: np.ndarray, selectors: Sequence[Selector],

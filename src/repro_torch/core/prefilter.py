@@ -28,6 +28,7 @@ from repro_torch.core.selectors import (InMemory, QueryFilter, Selector,
                                         is_member_approx)
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import BIG, INVALID_PENALTY, sq_dist
+from repro_torch.utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,44 +159,45 @@ def prefilter_search(store: RecordStore, codes, codebook, selectors, qfilters,
     the record gather of the re-rank: the top-(L+δ) records are read from
     the slab files through the page cache — same fields, same
     verification, the same output. ``distance_fn`` is :func:`_pq_topl`'s."""
-    dev = codes.device
-    B = len(selectors)
-    queries = torch.as_tensor(np.asarray(queries, np.float32)).to(dev)
-    qf_dev = filter_to_device(qfilters, dev)
-    out_ids, out_d, ios, nvs = [], [], [], []
-    pages = np.zeros(B, np.int64)
-    dist_comps = np.zeros(B, np.int64)
-    for b in range(B):
-        sel: Selector = selectors[b]
-        if speculative:
-            cand, pg = sel.pre_filter_approx()
-        else:
-            cand, pg = _strict_scan(sel)
-        cand = np.asarray(cand, np.int32)[:params.max_candidates]
-        qf = QueryFilter(*(x[b:b + 1] for x in qf_dev))
-        top_ids, _ = _pq_topl(codes, codebook, queries[b],
-                              torch.from_numpy(cand).to(dev),
-                              params.l_rerank, distance_fn)
-        if host_fetch is None:
-            ids, dists, io, nv = _rerank_verify(store, qf, queries[b],
-                                                top_ids, params)
-        else:
-            tid = top_ids.cpu().numpy()
-            ids, dists, io, nv = _verify_fetched(
-                qf, queries[b], top_ids, host_fetch(np.where(tid >= 0, tid,
-                                                             0)),
-                params, store.pages_std)
-        out_ids.append(ids)
-        out_d.append(dists)
-        ios.append(io)
-        nvs.append(nv)
-        pages[b] = pg
-        dist_comps[b] = cand.size
-    io_pages = torch.stack(ios).cpu() + torch.from_numpy(pages)
-    return PrefilterResult(
-        ids=torch.stack(out_ids), dists=torch.stack(out_d),
-        io_pages=io_pages, dist_comps=torch.from_numpy(dist_comps),
-        n_valid=torch.stack(nvs).cpu())
+    with trace.span("prefilter.search", rows=len(selectors)):
+        dev = codes.device
+        B = len(selectors)
+        queries = torch.as_tensor(np.asarray(queries, np.float32)).to(dev)
+        qf_dev = filter_to_device(qfilters, dev)
+        out_ids, out_d, ios, nvs = [], [], [], []
+        pages = np.zeros(B, np.int64)
+        dist_comps = np.zeros(B, np.int64)
+        for b in range(B):
+            sel: Selector = selectors[b]
+            if speculative:
+                cand, pg = sel.pre_filter_approx()
+            else:
+                cand, pg = _strict_scan(sel)
+            cand = np.asarray(cand, np.int32)[:params.max_candidates]
+            qf = QueryFilter(*(x[b:b + 1] for x in qf_dev))
+            top_ids, _ = _pq_topl(codes, codebook, queries[b],
+                                  torch.from_numpy(cand).to(dev),
+                                  params.l_rerank, distance_fn)
+            if host_fetch is None:
+                ids, dists, io, nv = _rerank_verify(store, qf, queries[b],
+                                                    top_ids, params)
+            else:
+                tid = trace.to_host(top_ids).numpy()
+                ids, dists, io, nv = _verify_fetched(
+                    qf, queries[b], top_ids,
+                    host_fetch(np.where(tid >= 0, tid, 0)), params,
+                    store.pages_std)
+            out_ids.append(ids)
+            out_d.append(dists)
+            ios.append(io)
+            nvs.append(nv)
+            pages[b] = pg
+            dist_comps[b] = cand.size
+        io_pages = trace.to_host(torch.stack(ios)) + torch.from_numpy(pages)
+        return PrefilterResult(
+            ids=torch.stack(out_ids), dists=torch.stack(out_d),
+            io_pages=io_pages, dist_comps=torch.from_numpy(dist_comps),
+            n_valid=trace.to_host(torch.stack(nvs)))
 
 
 def _strict_scan(sel: Selector) -> tuple[np.ndarray, int]:

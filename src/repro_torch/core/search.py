@@ -65,6 +65,7 @@ from repro_torch.core.selectors import (InMemory, QueryFilter,
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import BIG, INVALID_PENALTY, sq_dist, \
     visited_slot, visited_spec
+from repro_torch.utils import trace
 
 DEFAULT_HOP_CHUNK = 32    # hops between the driver's compaction checks
 MIN_COMPACT_BUCKET = 8    # narrowest bucket the driver compacts into
@@ -318,7 +319,9 @@ def _hop_step(store, codes, mem, params, ctx, mc, st, rec,
     the strict_in neighbours' attributes (see :func:`run_hops`). A custom
     ``distance_fn`` (:func:`row_distance`) computes every slab's ADC
     distance in place of the fused sum, and spec_in then screens with
-    ``is_member_approx`` instead of the fused kernel (``mc`` is None)."""
+    ``is_member_approx`` instead of the fused kernel (``mc`` is None).
+    Its phases are the spans ``hop.rerank`` (2'-3), ``hop.expand`` (4-5),
+    ``hop.select`` (6-7) and ``hop.settle`` (8, 1')."""
     p = params
     l_valid = p.l_valid or p.l_search
     P, W = p.l_search, p.beam_width
@@ -338,175 +341,181 @@ def _hop_step(store, codes, mem, params, ctx, mc, st, rec,
     def slab_dist(ids_slab):
         return row_distance(distance_fn, codes[ids_slab.long()], tables)
 
-    # ---- 2'. the carried slab ----
-    vecs = rec["vectors"].reshape(B, W, D)
-    nbrs = rec["neighbors"].reshape(B, W, R)
-    rl = rec["rec_labels"].reshape(B, W, -1)
-    rv = rec["rec_values"].reshape(B, W, -1)
-    io = counters[:, 0] + cur_live.sum(1, dtype=torch.int32) * rec_pages
+    with trace.span("hop.rerank"):
+        # ---- 2'. the carried slab ----
+        vecs = rec["vectors"].reshape(B, W, D)
+        nbrs = rec["neighbors"].reshape(B, W, R)
+        rl = rec["rec_labels"].reshape(B, W, -1)
+        rv = rec["rec_values"].reshape(B, W, -1)
+        io = counters[:, 0] + cur_live.sum(1, dtype=torch.int32) * rec_pages
 
-    # ---- 2''. fault ladder on the slab read (core/faults.py) ----
-    # Retry → hedge → degrade. Every draw is a stateless hash of (record
-    # id, that query's own hop counter, attempt), so compaction can gather
-    # rows in any order and no draw changes. Rows whose every attempt drew
-    # bad are "degraded".
-    plan = p.fault_plan
-    faults_c, retries_c, degraded_c = (counters[:, 4], counters[:, 5],
-                                       counters[:, 6])
-    degraded_rows = None
-    if plan is not None and plan.reads_faulty:
-        ids_safe = torch.where(cur_live, cur_ids, 0)
-        hcol = hops[:, None]
-        pending = faults_mod.read_attempt_bad(ids_safe, hcol, 0,
-                                              plan) & cur_live
-        n_faults = pending.sum(1, dtype=torch.int32)
-        n_retries = torch.zeros_like(n_faults)
-        for a in range(1, plan.attempts):
-            n_retries = n_retries + pending.sum(1, dtype=torch.int32)
-            pending = pending & faults_mod.read_attempt_bad(ids_safe, hcol,
-                                                            a, plan)
-            n_faults = n_faults + pending.sum(1, dtype=torch.int32)
-        degraded_rows = pending
-        spikes = faults_mod.read_spike(ids_safe, hcol, plan) & cur_live
-        faults_c = faults_c + n_faults + spikes.sum(1, dtype=torch.int32)
-        retries_c = retries_c + n_retries
-        degraded_c = degraded_c + degraded_rows.sum(1, dtype=torch.int32)
-        io = io + n_retries * rec_pages          # each retry re-reads pages
+        # ---- 2''. fault ladder on the slab read (core/faults.py) ----
+        # Retry → hedge → degrade. Every draw is a stateless hash of
+        # (record id, that query's own hop counter, attempt), so compaction
+        # can gather rows in any order and no draw changes. Rows whose
+        # every attempt drew bad are "degraded".
+        plan = p.fault_plan
+        faults_c, retries_c, degraded_c = (counters[:, 4], counters[:, 5],
+                                           counters[:, 6])
+        degraded_rows = None
+        if plan is not None and plan.reads_faulty:
+            ids_safe = torch.where(cur_live, cur_ids, 0)
+            hcol = hops[:, None]
+            pending = faults_mod.read_attempt_bad(ids_safe, hcol, 0,
+                                                  plan) & cur_live
+            n_faults = pending.sum(1, dtype=torch.int32)
+            n_retries = torch.zeros_like(n_faults)
+            for a in range(1, plan.attempts):
+                n_retries = n_retries + pending.sum(1, dtype=torch.int32)
+                pending = pending & faults_mod.read_attempt_bad(ids_safe, hcol,
+                                                                a, plan)
+                n_faults = n_faults + pending.sum(1, dtype=torch.int32)
+            degraded_rows = pending
+            spikes = faults_mod.read_spike(ids_safe, hcol, plan) & cur_live
+            faults_c = faults_c + n_faults + spikes.sum(1, dtype=torch.int32)
+            retries_c = retries_c + n_retries
+            degraded_c = degraded_c + degraded_rows.sum(1, dtype=torch.int32)
+            io = io + n_retries * rec_pages      # each retry re-reads pages
 
-    # ---- 3. re-rank + piggybacked exact verification ----
-    ex_d = torch.where(cur_live, sq_dist(vecs, queries[:, None, :]), BIG)
-    ex_ok = is_member(qf, rl, rv) & cur_live
-    if degraded_rows is not None:
-        # a degraded row never saw its record: its ADC distance and approx
-        # membership (a no-false-negative superset) stand in for it
-        deg_d = torch.where(cur_live, slab_dist(ids_safe), BIG)
-        deg_ok = is_member_approx(qf, ids_safe, mem) & cur_live
-        ex_d = torch.where(degraded_rows, deg_d, ex_d)
-        ex_ok = torch.where(degraded_rows, deg_ok, ex_ok)
-    pos = torch.where(active[:, None], hops[:, None].long() * W + w_iota,
-                      w_iota)
-    res_ids = _put_rows(res_ids, pos, torch.where(cur_live, cur_ids, -1),
-                        active)
-    res_d = _put_rows(res_d, pos, ex_d, active)
-    res_valid = _put_rows(res_valid, pos, ex_ok, active)
-    # incremental early-termination bound: merge the W new verified
-    # distances into the sorted top-l_valid buffer
-    vtop = torch.sort(torch.cat([vtop, torch.where(ex_ok, ex_d, BIG)], 1),
-                      dim=1, stable=True).values[:, :l_valid]
-    n_okc = n_okc + ex_ok.sum(1, dtype=torch.int32)
+        # ---- 3. re-rank + piggybacked exact verification ----
+        ex_d = torch.where(cur_live, sq_dist(vecs, queries[:, None, :]), BIG)
+        ex_ok = is_member(qf, rl, rv) & cur_live
+        if degraded_rows is not None:
+            # a degraded row never saw its record: its ADC distance and approx
+            # membership (a no-false-negative superset) stand in for it
+            deg_d = torch.where(cur_live, slab_dist(ids_safe), BIG)
+            deg_ok = is_member_approx(qf, ids_safe, mem) & cur_live
+            ex_d = torch.where(degraded_rows, deg_d, ex_d)
+            ex_ok = torch.where(degraded_rows, deg_ok, ex_ok)
+        pos = torch.where(active[:, None], hops[:, None].long() * W + w_iota,
+                          w_iota)
+        res_ids = _put_rows(res_ids, pos, torch.where(cur_live, cur_ids, -1),
+                            active)
+        res_d = _put_rows(res_d, pos, ex_d, active)
+        res_valid = _put_rows(res_valid, pos, ex_ok, active)
+        # incremental early-termination bound: merge the W new verified
+        # distances into the sorted top-l_valid buffer
+        vtop = torch.sort(torch.cat([vtop, torch.where(ex_ok, ex_d, BIG)], 1),
+                          dim=1, stable=True).values[:, :l_valid]
+        n_okc = n_okc + ex_ok.sum(1, dtype=torch.int32)
 
-    # ---- 4. candidate slab + visited-set dedup ----
-    if p.mode == "spec_in":
-        dn = rec["dense_neighbors"].reshape(B, W, Rd)
-        cand = torch.cat([nbrs, dn], dim=2)                  # (B, W, C)
-    else:
-        cand = nbrs
-    expand_live = (cur_live if degraded_rows is None
-                   else cur_live & ~degraded_rows)
-    cand = torch.where(expand_live[:, :, None], cand, -1).reshape(B, W * C)
-    live = cand >= 0
-    safe_cand = torch.where(live, cand, 0)
-    seen = _bit_test(visited, visited_slot(safe_cand, n_ids))
-    if W == 1 and "cand_first" in rec:
-        # W=1: the slab is one record's candidate list — read its
-        # precomputed first-occurrence mask (records.candidate_first_mask)
-        first = rec["cand_first"].reshape(B, -1)[:, :C]
-    else:
-        first = _first_occurrence(cand, live, n_ids)
-    fresh = live & ~seen & first
-
-    # ---- 5. fused candidate pass (distance + membership + key) ----
-    if p.mode == "post":
-        ok = fresh
-        key_slab = slab_dist(safe_cand)
-        approx_c = counters[:, 2]
-    elif p.mode == "spec_in":
-        if mc is not None:
-            bl_i32, bc_i32, (f_scal, f_om, f_rf, f_blo, f_bhi) = mc
-            # the kernel gathers each candidate's code row, bloom word,
-            # bucket words and rare-list bit itself
-            key_slab, ok_approx = kops.hop_fused_gather(
-                codes, bl_i32, bc_i32, merged_tbl, safe_cand, tables,
-                f_scal, f_om, f_rf, f_blo, f_bhi)
+    with trace.span("hop.expand"):
+        # ---- 4. candidate slab + visited-set dedup ----
+        if p.mode == "spec_in":
+            dn = rec["dense_neighbors"].reshape(B, W, Rd)
+            cand = torch.cat([nbrs, dn], dim=2)                  # (B, W, C)
         else:
-            ok_approx = is_member_approx(qf, safe_cand, mem)
-            key_slab = slab_dist(safe_cand) + torch.where(
-                ok_approx, 0.0, INVALID_PENALTY)
-        ok = ok_approx & fresh
-        approx_c = counters[:, 2] + live.sum(1, dtype=torch.int32)
-    else:  # strict_in: read every fresh neighbor's attributes from "SSD"
-        if getattr(fetch_fn, "wants_ctx", False):
-            # disk tier: the device-resident bloom/bucket words gate the
-            # attribute reads BEFORE any page is read (the paper's saved
-            # I/O). The gate is a no-false-negative superset, so a gated-out
-            # row's poisoned attributes (labels -1, values NaN) fail exact
-            # membership exactly where its real attributes would
-            gate = is_member_approx(qf, safe_cand, mem)
-            nrec = fetch_fn(store, safe_cand.reshape(-1),
-                            need=fresh.reshape(-1), gate=gate.reshape(-1),
-                            attrs_only=True)
+            cand = nbrs
+        expand_live = (cur_live if degraded_rows is None
+                       else cur_live & ~degraded_rows)
+        cand = torch.where(expand_live[:, :, None], cand, -1).reshape(B, W * C)
+        live = cand >= 0
+        safe_cand = torch.where(live, cand, 0)
+        seen = _bit_test(visited, visited_slot(safe_cand, n_ids))
+        if W == 1 and "cand_first" in rec:
+            # W=1: the slab is one record's candidate list — read its
+            # precomputed first-occurrence mask (records.candidate_first_mask)
+            first = rec["cand_first"].reshape(B, -1)[:, :C]
         else:
-            nrec = fetch_fn(store, safe_cand.reshape(-1))
-        n_rl = nrec["rec_labels"].reshape(B, W * C, -1)
-        n_rv = nrec["rec_values"].reshape(B, W * C, store.n_fields)
-        ok = is_member(qf, n_rl, n_rv) & fresh
-        io = io + fresh.sum(1, dtype=torch.int32)          # 1 page / neighbor
-        key_slab = slab_dist(safe_cand)
-        approx_c = counters[:, 2]
+            first = _first_occurrence(cand, live, n_ids)
+        fresh = live & ~seen & first
 
-    # ---- 6. slot selection: up to R approx-valid, bridge back-fill ----
-    if p.mode == "spec_in":
-        okr = ok.reshape(B, W, C)
-        is_direct = torch.arange(C, device=dev) < R
-        fill = fresh.reshape(B, W, C) & ~okr & is_direct
-        rank_ok = torch.cumsum(okr.int(), dim=2) - 1
-        rank_fill = torch.cumsum(fill.int(), dim=2) - 1
-        n_ok_row = okr.sum(2, keepdim=True)
-        order_key = torch.where(
-            okr, rank_ok.float(),
-            torch.where(fill, (n_ok_row + rank_fill).float(), BIG))
-        take = _stable_order(order_key, 2)[:, :, :R]          # (B, W, R)
-        sel_ok = torch.gather(okr, 2, take).reshape(B, W * R)
-        sel_fill = torch.gather(fill, 2, take).reshape(B, W * R)
-        sel_live = sel_ok | sel_fill
-        sel_ids = torch.gather(cand.reshape(B, W, C), 2, take).reshape(
-            B, W * R)
-        sel_key = torch.gather(key_slab.reshape(B, W, C), 2, take).reshape(
-            B, W * R)
-        new_ids = torch.where(sel_live, sel_ids, -1)
-        new_key = torch.where(sel_live, sel_key, BIG)
-    else:
-        sel_live = ok
-        new_ids = torch.where(ok, cand, -1)
-        new_key = torch.where(ok, key_slab, BIG)
-    dist_c = counters[:, 1] + sel_live.sum(1, dtype=torch.int32)
-    # mark *admitted* candidates visited (a fresh candidate that loses slot
-    # selection stays unmarked and may be re-proposed by another parent):
-    # new_ids is -1 wherever sel_live is False, and the in-place entry drops
-    # those; the state's visited words are updated where they lie
-    visited = kops.or_scatter_(visited, new_ids, n_ids)
+        # ---- 5. fused candidate pass (distance + membership + key) ----
+        if p.mode == "post":
+            ok = fresh
+            key_slab = slab_dist(safe_cand)
+            approx_c = counters[:, 2]
+        elif p.mode == "spec_in":
+            if mc is not None:
+                bl_i32, bc_i32, (f_scal, f_om, f_rf, f_blo, f_bhi) = mc
+                # the kernel gathers each candidate's code row, bloom word,
+                # bucket words and rare-list bit itself
+                key_slab, ok_approx = kops.hop_fused_gather(
+                    codes, bl_i32, bc_i32, merged_tbl, safe_cand, tables,
+                    f_scal, f_om, f_rf, f_blo, f_bhi)
+            else:
+                ok_approx = is_member_approx(qf, safe_cand, mem)
+                key_slab = slab_dist(safe_cand) + torch.where(
+                    ok_approx, 0.0, INVALID_PENALTY)
+            ok = ok_approx & fresh
+            approx_c = counters[:, 2] + live.sum(1, dtype=torch.int32)
+        else:  # strict_in: read every fresh neighbor's attributes from "SSD"
+            if getattr(fetch_fn, "wants_ctx", False):
+                # disk tier: the device-resident bloom/bucket words gate
+                # the attribute reads BEFORE any page is read (the paper's
+                # saved I/O). The gate is a no-false-negative superset, so
+                # a gated-out row's poisoned attributes (labels -1, values
+                # NaN) fail exact membership exactly where its real
+                # attributes would
+                gate = is_member_approx(qf, safe_cand, mem)
+                nrec = fetch_fn(store, safe_cand.reshape(-1),
+                                need=fresh.reshape(-1), gate=gate.reshape(-1),
+                                attrs_only=True)
+            else:
+                nrec = fetch_fn(store, safe_cand.reshape(-1))
+            n_rl = nrec["rec_labels"].reshape(B, W * C, -1)
+            n_rv = nrec["rec_values"].reshape(B, W * C, store.n_fields)
+            ok = is_member(qf, n_rl, n_rv) & fresh
+            io = io + fresh.sum(1, dtype=torch.int32)  # 1 page / neighbor
+            key_slab = slab_dist(safe_cand)
+            approx_c = counters[:, 2]
 
-    # ---- 7. sorted-pool merge: concatenate + one stable sort ----
-    all_key = torch.cat([pool_key, new_key], 1)
-    srt, midx = torch.sort(all_key, dim=1, stable=True)
-    midx = midx[:, :P]
-    pool_key = srt[:, :P]
-    pool_ids = torch.gather(torch.cat([pool_ids, new_ids], 1), 1, midx)
-    pool_exp = torch.gather(
-        torch.cat([pool_exp, torch.zeros_like(sel_live)], 1), 1, midx)
+    with trace.span("hop.select"):
+        # ---- 6. slot selection: up to R approx-valid, bridge back-fill ----
+        if p.mode == "spec_in":
+            okr = ok.reshape(B, W, C)
+            is_direct = torch.arange(C, device=dev) < R
+            fill = fresh.reshape(B, W, C) & ~okr & is_direct
+            rank_ok = torch.cumsum(okr.int(), dim=2) - 1
+            rank_fill = torch.cumsum(fill.int(), dim=2) - 1
+            n_ok_row = okr.sum(2, keepdim=True)
+            order_key = torch.where(
+                okr, rank_ok.float(),
+                torch.where(fill, (n_ok_row + rank_fill).float(), BIG))
+            take = _stable_order(order_key, 2)[:, :, :R]          # (B, W, R)
+            sel_ok = torch.gather(okr, 2, take).reshape(B, W * R)
+            sel_fill = torch.gather(fill, 2, take).reshape(B, W * R)
+            sel_live = sel_ok | sel_fill
+            sel_ids = torch.gather(cand.reshape(B, W, C), 2, take).reshape(
+                B, W * R)
+            sel_key = torch.gather(key_slab.reshape(B, W, C), 2, take).reshape(
+                B, W * R)
+            new_ids = torch.where(sel_live, sel_ids, -1)
+            new_key = torch.where(sel_live, sel_key, BIG)
+        else:
+            sel_live = ok
+            new_ids = torch.where(ok, cand, -1)
+            new_key = torch.where(ok, key_slab, BIG)
+        dist_c = counters[:, 1] + sel_live.sum(1, dtype=torch.int32)
+        # mark *admitted* candidates visited (a fresh candidate that loses
+        # slot selection stays unmarked and may be re-proposed by another
+        # parent): new_ids is -1 wherever sel_live is False, and the
+        # in-place entry drops those; the state's visited words are updated
+        # where they lie
+        visited = kops.or_scatter_(visited, new_ids, n_ids)
 
-    # ---- 8. per-query termination ----
-    hops_new = hops + active.int()
-    frontier = (~pool_exp & (pool_key < BIG)).any(1)
-    best_unexp = torch.where(pool_exp, BIG, pool_key).min(1).values
-    settled = (n_okc >= l_valid) & (best_unexp > vtop[:, l_valid - 1])
-    active = active & (hops_new < p.max_hops) & frontier & ~settled
-    counters = torch.stack([io, dist_c, approx_c, hops_new, faults_c,
-                            retries_c, degraded_c], 1).int()
+        # ---- 7. sorted-pool merge: concatenate + one stable sort ----
+        all_key = torch.cat([pool_key, new_key], 1)
+        srt, midx = torch.sort(all_key, dim=1, stable=True)
+        midx = midx[:, :P]
+        pool_key = srt[:, :P]
+        pool_ids = torch.gather(torch.cat([pool_ids, new_ids], 1), 1, midx)
+        pool_exp = torch.gather(
+            torch.cat([pool_exp, torch.zeros_like(sel_live)], 1), 1, midx)
 
-    # ---- 1'. select the NEXT frontier (its fetch follows this step) ----
-    cur_ids, cur_live, pool_exp = _select_frontier(pool_ids, pool_key,
-                                                   pool_exp, active, W)
+    with trace.span("hop.settle"):
+        # ---- 8. per-query termination ----
+        hops_new = hops + active.int()
+        frontier = (~pool_exp & (pool_key < BIG)).any(1)
+        best_unexp = torch.where(pool_exp, BIG, pool_key).min(1).values
+        settled = (n_okc >= l_valid) & (best_unexp > vtop[:, l_valid - 1])
+        active = active & (hops_new < p.max_hops) & frontier & ~settled
+        counters = torch.stack([io, dist_c, approx_c, hops_new, faults_c,
+                                retries_c, degraded_c], 1).int()
+
+        # ---- 1'. select the NEXT frontier (its fetch follows this step) ----
+        cur_ids, cur_live, pool_exp = _select_frontier(pool_ids, pool_key,
+                                                       pool_exp, active, W)
     return HopState(pool_ids, pool_key, pool_exp, visited, res_ids, res_d,
                     res_valid, vtop, n_okc, counters, active, cur_ids,
                     cur_live)
@@ -612,12 +621,16 @@ def filtered_search(store: RecordStore, codes, codebook, mem: InMemory,
                           entry, params, entries, distance_fn)
     mc = _mc(mem, ctx, params, distance_fn)
     rec = _issue(store, st, params, fetch_fn)
+    steps = 0
     for _ in range(params.max_hops):
         if not bool(st.active.any()):
             break
         st = _hop_step(store, codes, mem, params, ctx, mc, st, rec,
                        fetch_fn, distance_fn)
         rec = _issue(store, st, params, fetch_fn)
+        steps += 1
+    trace.count(hop_steps=steps,
+                row_hops_dispatched=steps * st.active.shape[0])
     return _finalize(st, params)
 
 
@@ -642,9 +655,10 @@ class _MaskReader:
             self._host, self._event = m.clone(), None
 
     def read(self) -> np.ndarray:
-        if self._event is not None:
-            self._event.synchronize()
-        return self._host.numpy().astype(bool)
+        with trace.span("search.readback"):
+            if self._event is not None:
+                trace.sync(self._event)
+            return self._host.numpy().astype(bool)
 
 
 def filtered_search_pipelined(store: RecordStore, codes, codebook,
@@ -707,39 +721,49 @@ def filtered_search_pipelined(store: RecordStore, codes, codebook,
         if entries is not None:
             entries = _pad(entries)
     dev = codes.device
-    full_ctx, full_st = init_search(store, codes, codebook, mem, qfilters,
-                                    queries, entry, params, entries=entries,
-                                    distance_fn=distance_fn)
-    if n_pad:
-        act0 = full_st.active.clone()
-        act0[orig_b:] = False
-        full_st = full_st._replace(active=act0)
+    with trace.span("search.seed", rows=B):
+        full_ctx, full_st = init_search(store, codes, codebook, mem,
+                                        qfilters, queries, entry, params,
+                                        entries=entries,
+                                        distance_fn=distance_fn)
+        if n_pad:
+            act0 = full_st.active.clone()
+            act0[orig_b:] = False
+            full_st = full_st._replace(active=act0)
     work_ctx, work_st = full_ctx, full_st
     work_map: np.ndarray | None = None   # None ⇒ identity (full width)
     work_valid: np.ndarray | None = None  # non-pad rows of the bucket
     width = B
     hops_done = 0
-    trace: list = []
+    chunk_log: list = []
 
     def hop(ctx, st):
-        if runner is not None:
-            st, active = runner.run(ctx, st, hop_chunk, params, distance_fn)
+        # the one count of dispatched chunks: the chunk log's hops and the
+        # tally's hop steps and row-hops
+        nonlocal hops_done
+        hops_done += hop_chunk
+        trace.count(hop_steps=hop_chunk,
+                    row_hops_dispatched=width * hop_chunk)
+        with trace.span("search.hops", width=width, hops=hop_chunk):
+            if runner is not None:
+                st, active = runner.run(ctx, st, hop_chunk, params,
+                                        distance_fn)
+            else:
+                st = run_hops(store, codes, mem, ctx, st, hop_chunk, params,
+                              fetch_fn, distance_fn)
+                active = st.active
             return st, _MaskReader(active)
-        st = run_hops(store, codes, mem, ctx, st, hop_chunk, params,
-                      fetch_fn, distance_fn)
-        return st, _MaskReader(st.active)
 
     act = _MaskReader(work_st.active).read()
     inflight = None                      # mask reader of the newest chunk
     while True:
         n_act = int(act.sum())
         if collect_trace:
-            trace.append({"hop": hops_done, "active": n_act,
-                          "bucket": width})
+            chunk_log.append({"hop": hops_done, "active": n_act,
+                              "bucket": width})
         bucket = min(B, max(min_bucket, _pow2_at_least(max(n_act, 1))))
         if n_act and bucket >= width:
             work_st, mask = hop(work_ctx, work_st)
-            hops_done += hop_chunk
             if not async_readback:
                 act = mask.read()
                 continue
@@ -747,31 +771,31 @@ def filtered_search_pipelined(store: RecordStore, codes, codebook,
                 # prime the one-chunk pipeline: issue a second chunk so the
                 # device has work while the first mask comes back
                 work_st, inflight = hop(work_ctx, work_st)
-                hops_done += hop_chunk
                 act = mask.read()
             else:
                 act, inflight = inflight.read(), mask
             continue
         # settle or shrink: fold the working rows into the full state
-        if work_map is None:
-            full_st = work_st
-        else:
-            full_st = put_rows(full_st, work_st,
-                               torch.from_numpy(work_map).long().to(dev),
-                               torch.from_numpy(work_valid).to(dev))
-        if n_act == 0:
-            break
-        surv = np.flatnonzero(act)
-        idx = (work_map[surv] if work_map is not None else surv) \
-            .astype(np.int64)
-        pads = np.full(bucket - idx.size, idx[0], np.int64)
-        work_map = np.concatenate([idx, pads])
-        work_valid = np.arange(bucket) < idx.size
-        gidx = torch.from_numpy(work_map).to(dev)
-        work_ctx = take_rows(full_ctx, gidx)
-        work_st = take_rows(full_st, gidx)
-        work_st = work_st._replace(
-            active=work_st.active & torch.from_numpy(work_valid).to(dev))
+        with trace.span("search.compact", rows=n_act, width=bucket):
+            if work_map is None:
+                full_st = work_st
+            else:
+                full_st = put_rows(full_st, work_st,
+                                   torch.from_numpy(work_map).long().to(dev),
+                                   torch.from_numpy(work_valid).to(dev))
+            if n_act == 0:
+                break
+            surv = np.flatnonzero(act)
+            idx = (work_map[surv] if work_map is not None else surv) \
+                .astype(np.int64)
+            pads = np.full(bucket - idx.size, idx[0], np.int64)
+            work_map = np.concatenate([idx, pads])
+            work_valid = np.arange(bucket) < idx.size
+            gidx = torch.from_numpy(work_map).to(dev)
+            work_ctx = take_rows(full_ctx, gidx)
+            work_st = take_rows(full_st, gidx)
+            work_st = work_st._replace(
+                active=work_st.active & torch.from_numpy(work_valid).to(dev))
         width = bucket
         inflight = None
         if async_readback:
@@ -780,12 +804,12 @@ def filtered_search_pipelined(store: RecordStore, codes, codebook,
             act = work_valid.copy()
             continue
         work_st, mask = hop(work_ctx, work_st)
-        hops_done += hop_chunk
         act = mask.read()
-    res = finalize_search(full_st, params)
+    with trace.span("search.finalize"):
+        res = finalize_search(full_st, params)
     if n_pad:
         res = SearchResult(*(a[:orig_b] for a in res))
-    return (res, trace) if collect_trace else res
+    return (res, chunk_log) if collect_trace else res
 
 
 # ---------------------------------------------------------------------------

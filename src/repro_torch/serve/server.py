@@ -124,6 +124,13 @@ class ServerStats:
     warmed: bool                 # warmup() has run
     shards: int = 1              # shards the hop loop spans
                                  # (engine.n_shards; 1 = unsharded)
+    # what the queue costs: completed ÷ flushes is the mean batch an
+    # operator tunes max_batch/max_delay_s against, and queue_wait_us ÷
+    # completed the mean wait before a request's flush starts, which
+    # tells queueing from service when p99_us rises
+    flushes: int = 0             # batches the worker executed
+    queue_wait_us: float = 0.0   # Σ over their requests of flush start −
+                                 # admission
 
 
 @dataclasses.dataclass
@@ -176,6 +183,8 @@ class SearchServer:
         self._shed = 0
         self._misses = 0
         self._degraded = 0
+        self._flushes = 0
+        self._queue_wait_us = 0.0
         self._warmed = False
         self._stop = False
         self._worker = threading.Thread(target=self._run, daemon=True,
@@ -472,6 +481,8 @@ class SearchServer:
                         "handle"))
         done = _now_us()
         with self._lock:
+            self._flushes += 1
+            self._queue_wait_us += sum(t0 - e.admit_us for e in batch)
             self._refit_locked(batch_cost, done - t0)
             degraded = _is_degraded(rung)
             for e in batch:
@@ -509,4 +520,6 @@ class SearchServer:
                 healthy=alive,
                 ready=alive and not self._stop,
                 warmed=self._warmed,
-                shards=self.index.engine.n_shards)
+                shards=self.index.engine.n_shards,
+                flushes=self._flushes,
+                queue_wait_us=self._queue_wait_us)

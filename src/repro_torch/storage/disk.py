@@ -55,6 +55,7 @@ from repro_torch.storage import slab as slab_mod
 from repro_torch.storage.cache import PageCache
 from repro_torch.storage.slab import (InjectedReadError, SlabChecksumError,
                                       SlabLayout, SLAB_FILE, read_meta)
+from repro_torch.utils import trace
 
 _MAX_SAMPLES = 4096
 
@@ -69,9 +70,13 @@ class StorageConfig:
 
 
 class _Counters:
+    # the last two, host µs: fetch_us sums the ``disk.fetch`` span's
+    # seconds over the fetches records_fetched counts (track=True; page
+    # reads included), pread_us every read's µs, of which ``samples``
+    # keeps only the first _MAX_SAMPLES
     FIELDS = ("pages_read", "preads", "records_fetched", "attr_probes",
               "attr_reads", "gated_skips", "readahead_pages", "faults",
-              "retries", "degraded")
+              "retries", "degraded", "fetch_us", "pread_us")
 
     def __init__(self):
         for f in self.FIELDS:
@@ -125,14 +130,14 @@ class _DiskFetch:
         ds = self._ds
         if attrs_only:
             # one transfer: ids, need and gate side by side
-            host = torch.stack([ids.int(), need.int(),
-                                gate.int()]).cpu().numpy()
+            host = trace.to_host(torch.stack([ids.int(), need.int(),
+                                              gate.int()])).numpy()
             out = ds.read_attrs(host[0], host[1].astype(bool),
                                 host[2].astype(bool))
         else:
             # one transfer: ids, each row's hop counter and liveness
-            host = torch.stack([ids.int(), hops.int(),
-                                live.int()]).cpu().numpy()
+            host = trace.to_host(torch.stack([ids.int(), hops.int(),
+                                              live.int()])).numpy()
             out = ds.fetch(host[0], host[1], host[2].astype(bool),
                            dense=bool(dense))
         return self._stage.to_device(out, ids.device)
@@ -244,6 +249,7 @@ class DiskRecordStore:
         t0 = time.perf_counter()
         data = os.pread(self._fd, n_pages * pb, first_pid * pb)
         us = (time.perf_counter() - t0) * 1e6
+        self.counters.pread_us += us
         self.counters.preads += 1
         self.counters.pages_read += n_pages
         if len(self.samples) < _MAX_SAMPLES:
@@ -315,6 +321,13 @@ class DiskRecordStore:
         leaves the fetch counters, the latency samples and read-ahead out
         (page reads and the cache still count).
         """
+        with trace.span("disk.fetch") as sp:
+            out = self._fetch(ids, hops, live, dense, track)
+        if track:
+            self.counters.fetch_us += sp.dt * 1e6
+        return out
+
+    def _fetch(self, ids, hops, live, dense: bool, track: bool) -> dict:
         ids = np.asarray(ids, np.int64).reshape(-1)
         n = ids.size
         lo = self.layout
@@ -437,24 +450,25 @@ class DiskRecordStore:
         verification would reject it anyway (no-false-negative superset),
         so results are bit-identical while the page read is saved.
         """
-        ids = np.asarray(ids, np.int64).reshape(-1)
-        need = np.asarray(need, bool).reshape(-1)
-        gate = np.asarray(gate, bool).reshape(-1)
-        n = ids.size
-        lo = self.layout
-        labels = np.full((n, lo.max_labels), -1, np.int32)
-        values = np.full((n, lo.n_fields), np.nan, np.float32)
-        self.counters.attr_probes += int(need.sum())
-        self.counters.gated_skips += int((need & ~gate).sum())
-        for i in np.nonzero(need & gate)[0]:
-            rid = int(ids[i])
-            pid = rid * lo.slab_pages + lo.attr_page
-            page = self._get_pages([pid])[pid]
-            attrs = slab_mod.decode_attrs(lo, page)
-            labels[i] = attrs["rec_labels"]
-            values[i] = attrs["rec_values"]
-            self.counters.attr_reads += 1
-        return {"rec_labels": labels, "rec_values": values}
+        with trace.span("disk.read_attrs"):
+            ids = np.asarray(ids, np.int64).reshape(-1)
+            need = np.asarray(need, bool).reshape(-1)
+            gate = np.asarray(gate, bool).reshape(-1)
+            n = ids.size
+            lo = self.layout
+            labels = np.full((n, lo.max_labels), -1, np.int32)
+            values = np.full((n, lo.n_fields), np.nan, np.float32)
+            self.counters.attr_probes += int(need.sum())
+            self.counters.gated_skips += int((need & ~gate).sum())
+            for i in np.nonzero(need & gate)[0]:
+                rid = int(ids[i])
+                pid = rid * lo.slab_pages + lo.attr_page
+                page = self._get_pages([pid])[pid]
+                attrs = slab_mod.decode_attrs(lo, page)
+                labels[i] = attrs["rec_labels"]
+                values[i] = attrs["rec_values"]
+                self.counters.attr_reads += 1
+            return {"rec_labels": labels, "rec_values": values}
 
     # -- host-side readers (prefilter re-rank, ground truth) -------------
     def fetch_host(self, ids: np.ndarray) -> dict:
@@ -511,7 +525,6 @@ class DiskRecordStore:
         d = {k: after.get(k, 0) - before.get(k, 0) for k in keys}
         tot = d["hits"] + d["misses"]
         d["hit_rate"] = d["hits"] / tot if tot else 0.0
-        d["p50_page_us"] = after.get("p50_page_us", 0.0)
         return d
 
     def reset_counters(self):

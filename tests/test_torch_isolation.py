@@ -72,6 +72,7 @@ def test_port_imports_no_jax_no_repro():
                 "repro_torch.serve.decode", "repro_torch.launch",
                 "repro_torch.launch.serve", "repro_torch.random",
                 "repro_torch.utils", "repro_torch.utils.tree",
+                "repro_torch.utils.trace",
                 "repro_torch.data.tokens", "repro_torch.data.pipeline",
                 "repro_torch.train", "repro_torch.train.optim",
                 "repro_torch.train.train_loop",
