@@ -922,6 +922,8 @@ def _search_run(e, ds, sels, scfg, label, reachable, repeats: int = 5):
     with uncounted():
         row = _check_run(e, ds, sels, scfg, label, ids, stats, lat)
     return {**row, "reachable_from_medoid": reachable,
+            "hop_steps_per_batch": stats.trace["hop_steps"],
+            "hop_steps_graphed_per_batch": stats.trace["hop_steps_graphed"],
             "launches_per_batch": per_batch,
             "entry_calls_per_batch": {k: v / repeats
                                       for k, v in calls.items()}}
@@ -974,7 +976,10 @@ def torch_ops(fn) -> int:
 def hop_profile(e, ds, cfg, hops: int = 32) -> dict:
     """The hop loop's layer metrics on the label workload in spec_in mode:
     PyTorch operator calls in one hop (:func:`torch_ops`) and the wall time
-    per hop over one chunk of ``hops`` hops, synchronised."""
+    per hop over one chunk of ``hops`` hops, synchronised: through
+    ``run_hops`` (its hop graph captured by a first chunk beforehand) and
+    through the eager loop (``_run_hops_eager``), each from the seeded
+    state."""
     import torch
     from repro_torch.core import search
     from repro_torch.core.selectors import stack_filters
@@ -994,12 +999,20 @@ def hop_profile(e, ds, cfg, hops: int = 32) -> dict:
     once = search.HopState(*(t.clone() for t in st))
     n_ops = torch_ops(lambda: search._issue(e.store, search._hop_step(
         e.store, e.codes, e.mem, sp, ctx, mc, once, rec), sp))
-    torch.cuda.synchronize(e.device)
-    t0 = time.perf_counter()
-    search.run_hops(e.store, e.codes, e.mem, ctx, st, hops, sp)
-    torch.cuda.synchronize(e.device)
+    search.run_hops(e.store, e.codes, e.mem, ctx,
+                    search.HopState(*(t.clone() for t in st)), hops, sp)
+
+    def ms_per_hop(run) -> float:
+        seeded = search.HopState(*(t.clone() for t in st))
+        torch.cuda.synchronize(e.device)
+        t0 = time.perf_counter()
+        run(e.store, e.codes, e.mem, ctx, seeded, hops, sp)
+        torch.cuda.synchronize(e.device)
+        return (time.perf_counter() - t0) / hops * 1e3
+
     return {"torch_ops_per_hop": n_ops, "queries": len(sels),
-            "ms_per_hop": (time.perf_counter() - t0) / hops * 1e3}
+            "ms_per_hop": ms_per_hop(search.run_hops),
+            "ms_per_hop_eager": ms_per_hop(search._run_hops_eager)}
 
 
 def full_phase(dev, n: int):
@@ -1061,8 +1074,13 @@ def full_phase(dev, n: int):
         entries = run["entry_calls_per_batch"]
         # the seeding builds the visited set (and the rare-list bitmap)
         # through the fresh entry, which zeroes a table and calls the
-        # in-place one; the hop loop calls the in-place entry; each of its
-        # calls is one launch, and nothing calls the slab entry
+        # in-place one; the hop loop calls the in-place entry, a replayed
+        # hop step as an eager one; each call is one launch, and nothing
+        # calls the slab entry. On the card every hop step is replayed
+        graphed = run["hop_steps_graphed_per_batch"]
+        assert graphed == (run["hop_steps_per_batch"]
+                           if e.device.type == "cuda" else 0), \
+            f"{run['run']}: {graphed} of the hop steps were graphed"
         assert entries["or_scatter_new"] > 0, \
             f"{run['run']}: no fresh-table or_scatter call"
         assert entries["or_scatter_"] > entries["or_scatter_new"], \
@@ -1263,7 +1281,7 @@ def serve_phase(e, ds, dev):
         first8 = (scan_res[:8], eng.QueryStats(**{
             f.name: getattr(scan_st, f.name)[:8]
             for f in dataclasses.fields(eng.QueryStats)
-            if f.name != "disk"}))
+            if f.name not in ("disk", "trace")}))
         compare_results("approx_scan card vs CPU", first8, cpu_res)
         out["scan"]["card_equals_cpu_on"] = 8
     return out, index
@@ -1615,14 +1633,23 @@ def disk_phase(index, ds, dev) -> dict:
     runs["scan/8"] = lambda: _answer(index.approx_scan_batch(
         scan_reqs, with_stats=True, with_metadata=False))
 
-    # the device backend's answers, launches and entry calls
+    # the device backend's answers, launches and entry calls: each run made
+    # once first, so that its hop graphs are captured (a capture's warm-up
+    # hop launches kernels of its own), and held to the eager loop's
     want = {}
     for label, fn in runs.items():
+        fn()
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
         res, launches, calls = _counted(fn)
         torch.cuda.synchronize(dev)
-        want[label] = (res, launches, calls, time.perf_counter() - t0)
+        secs = time.perf_counter() - t0
+        with eager_hops():
+            _, eager_launches, eager_calls = _counted(fn)
+        assert (eager_launches, eager_calls) == (launches, calls), \
+            f"{label}: hop graph launches {launches}, calls {calls} != " \
+            f"eager {eager_launches}, {eager_calls}"
+        want[label] = (res, launches, calls, secs)
 
     path = ROOT / "build" / "smoke_slabs"
     shutil.rmtree(path, ignore_errors=True)
@@ -1994,6 +2021,19 @@ SMOKE_BUDGET_S = 1000.0         # the whole smoke's target
 
 
 @contextlib.contextmanager
+def eager_hops():
+    """Run ``search.run_hops`` as the eager loop while open (the pipelined
+    driver calls it through the module): no hop step is replayed."""
+    from repro_torch.core import search
+    graphed = search.run_hops
+    search.run_hops = search._run_hops_eager
+    try:
+        yield
+    finally:
+        search.run_hops = graphed
+
+
+@contextlib.contextmanager
 def hop_steps():
     """Count ``search._hop_step`` calls while open: the unsharded hop loop
     and every shard of the sharded runner call it through the module."""
@@ -2033,7 +2073,9 @@ def _shard_run(e, ds, dev, shards, wl, policy) -> dict:
         after = ops.snapshot()
         tag = "sharded" if s else "unsharded"
         answers[tag] = res
-        row[tag] = {"s": secs, "hop_steps": steps[0],
+        # a replayed hop step calls no _hop_step: the tally counts those
+        graphed = res[2].trace["hop_steps_graphed"]
+        row[tag] = {"s": secs, "hop_steps": steps[0] + graphed,
                     "launches": {k: after[k] - before[k] for k in after}}
     e.shard(0)
     compare_results(f"shard {row['run']} S={shards}", answers["sharded"],
@@ -2053,9 +2095,9 @@ def _shard_run(e, ds, dev, shards, wl, policy) -> dict:
 
 def _shard_hop_ops(e, ds, shards) -> dict:
     """PyTorch operator calls (:func:`torch_ops`) of one hop of the spec_in
-    label batch (64 queries): ``run_hops`` unsharded, ``runner.run`` at S
-    shards; each from the seeded state, the next frontier's fetch
-    included."""
+    label batch (64 queries): the eager loop (``_run_hops_eager``)
+    unsharded, ``runner.run`` at S shards; each from the seeded state, the
+    next frontier's fetch included."""
     from repro_torch.core import distributed, search
     from repro_torch.core.selectors import stack_filters
     from repro_torch.data.synth import make_selectors
@@ -2074,7 +2116,7 @@ def _shard_hop_ops(e, ds, shards) -> dict:
     def fresh():
         return search.HopState(*(t.clone() for t in st))
 
-    return {"unsharded": torch_ops(lambda: search.run_hops(
+    return {"unsharded": torch_ops(lambda: search._run_hops_eager(
                 e.store, e.codes, e.mem, ctx, fresh(), 1, sp)),
             "sharded": torch_ops(lambda: runner.run(ctx, fresh(), 1, sp))}
 

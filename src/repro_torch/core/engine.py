@@ -33,8 +33,8 @@ from repro_torch.core.labels import (LabelStore, build_label_store,
                                      extend_label_store, padded_rows_from_csr,
                                      padded_vec_labels)
 from repro_torch.core.ranges import MultiRangeStore, build_multi_range_store
-from repro_torch.core.records import (RecordStore, candidate_first_mask,
-                                      make_record_store)
+from repro_torch.core.records import (HopGraphs, RecordStore,
+                                      candidate_first_mask, make_record_store)
 from repro_torch.core.selectors import (InMemory, QueryFilter, Selector,
                                         filter_to_device, is_member,
                                         stack_filters)
@@ -128,7 +128,8 @@ class QueryStats:
                               # backend
     trace: dict | None = None  # the batch's tally (utils/trace.py): groups,
                                # hop steps, live and dispatched row-hops,
-                               # host seconds by span, device waits
+                               # graphed hop steps, graph captures, host
+                               # seconds by span, device waits
 
     @classmethod
     def empty(cls) -> "QueryStats":
@@ -572,7 +573,8 @@ class FilteredANNEngine:
             rec_values=rec_values, pages_std=self.store.pages_std,
             pages_dense=self.store.pages_dense,
             # the 2-hop sample was just resampled: re-derive the mask
-            cand_first=candidate_first_mask(adj_dev, dense))
+            cand_first=candidate_first_mask(adj_dev, dense),
+            hop_graphs=HopGraphs())
 
     def approx_scan(self, queries: np.ndarray,
                     selectors: Sequence[Selector],

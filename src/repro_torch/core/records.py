@@ -10,6 +10,7 @@ the page cost of one record fetch without / with the densified 2-hop list.
 """
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple
 
 import torch
@@ -17,6 +18,20 @@ import torch
 from repro_torch.core import io_sim
 
 FIRST_CHUNK = 1 << 16     # rows per candidate_first_mask sort
+
+
+class HopGraphs:
+    """What the hop loop (``search.run_hops``) keeps with one store on the
+    card: the CUDA graphs it captured over the store's tensors, by shape
+    (``search._HopGraph``), and what their replays share. A store is built
+    with an empty one and frees it with its tensors."""
+
+    def __init__(self):
+        self.lock = threading.Lock()  # held by every use, capture included
+        self.graphs: dict = {}        # shape key -> search._HopGraph
+        self.pool = None              # the graphs' one memory pool
+        self.done = None              # CUDA event: the end of the last use
+        self.buckets = None           # (InMemory, its bucket codes in int32)
 
 
 class RecordStore(NamedTuple):
@@ -31,6 +46,9 @@ class RecordStore(NamedTuple):
     # record's candidate list [neighbors ++ dense_neighbors] (-1 pads False);
     # query-independent, so derived once per build (candidate_first_mask)
     cand_first: torch.Tensor | None = None
+    # the hop loop's CUDA graphs over these tensors; None (a shard, a disk
+    # tier's stand-in, a dry run) runs every hop eagerly
+    hop_graphs: HopGraphs | None = None
 
     @property
     def n(self) -> int:
@@ -102,4 +120,5 @@ def make_record_store(vectors, neighbors, dense_neighbors, rec_labels,
         n_fields)
     return RecordStore(vectors, neighbors, dense_neighbors, rec_labels,
                        rec_values, pages_std, pages_dense,
-                       candidate_first_mask(neighbors, dense_neighbors))
+                       candidate_first_mask(neighbors, dense_neighbors),
+                       HopGraphs())

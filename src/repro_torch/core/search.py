@@ -37,7 +37,8 @@ so the port follows the JAX package's trajectory query for query.
 Execution: :func:`run_hops` advances a batch ``n_hops`` hops with no host
 synchronisation inside on the device backend (rows that settled are exact
 fixed points of the hop step, so running a whole chunk changes nothing for
-them); every driver takes a ``fetch_fn``, the disk tier's included
+them), where it replays a hop captured as CUDA graphs (:class:`_HopGraph`);
+every driver takes a ``fetch_fn``, the disk tier's included
 (``storage/disk.py``: one host copy of the ids a hop);
 :func:`filtered_search_pipelined` reads the active mask back one chunk late
 (a non-blocking copy into pinned memory behind a CUDA event) and compacts
@@ -47,6 +48,7 @@ single-shot :func:`filtered_search`.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -321,7 +323,12 @@ def _hop_step(store, codes, mem, params, ctx, mc, st, rec,
     distance in place of the fused sum, and spec_in then screens with
     ``is_member_approx`` instead of the fused kernel (``mc`` is None).
     Its phases are the spans ``hop.rerank`` (2'-3), ``hop.expand`` (4-5),
-    ``hop.select`` (6-7) and ``hop.settle`` (8, 1')."""
+    ``hop.select`` (6-7) and ``hop.settle`` (8, 1'). Where :func:`run_hops`
+    replays a captured hop, this function (and so its spans) runs only when
+    the hop is captured, twice: the warm-up and the capture itself; the
+    ``hop.*`` host seconds then belong to captures. Its two hand-written
+    kernels are called through :func:`_entry`, which a capture leaves out
+    of the graph."""
     p = params
     l_valid = p.l_valid or p.l_search
     P, W = p.l_search, p.beam_width
@@ -430,9 +437,9 @@ def _hop_step(store, codes, mem, params, ctx, mc, st, rec,
                 bl_i32, bc_i32, (f_scal, f_om, f_rf, f_blo, f_bhi) = mc
                 # the kernel gathers each candidate's code row, bloom word,
                 # bucket words and rare-list bit itself
-                key_slab, ok_approx = kops.hop_fused_gather(
-                    codes, bl_i32, bc_i32, merged_tbl, safe_cand, tables,
-                    f_scal, f_om, f_rf, f_blo, f_bhi)
+                key_slab, ok_approx = _entry(
+                    "hop_fused_gather", codes, bl_i32, bc_i32, merged_tbl,
+                    safe_cand, tables, f_scal, f_om, f_rf, f_blo, f_bhi)
             else:
                 ok_approx = is_member_approx(qf, safe_cand, mem)
                 key_slab = slab_dist(safe_cand) + torch.where(
@@ -492,7 +499,7 @@ def _hop_step(store, codes, mem, params, ctx, mc, st, rec,
         # parent): new_ids is -1 wherever sel_live is False, and the
         # in-place entry drops those; the state's visited words are updated
         # where they lie
-        visited = kops.or_scatter_(visited, new_ids, n_ids)
+        visited = _entry("or_scatter_", visited, new_ids, n_ids)
 
         # ---- 7. sorted-pool merge: concatenate + one stable sort ----
         all_key = torch.cat([pool_key, new_key], 1)
@@ -539,12 +546,14 @@ def _issue(store: RecordStore, st: HopState, params: SearchParams,
 
 
 def _mc(mem: InMemory, ctx: QueryCtx, params: SearchParams,
-        distance_fn=None):
+        distance_fn=None, buckets=None):
     """The fused kernel's per-call inputs (spec_in with the default
-    distance only; a custom distance screens with ``is_member_approx``)."""
+    distance only; a custom distance screens with ``is_member_approx``).
+    ``buckets``, the bucket codes already in int32, saves the relayout."""
     if params.mode != "spec_in" or not default_distance(distance_fn):
         return None
-    bl_i32, bc_i32 = kernel_view(mem)
+    bl_i32, bc_i32 = (kernel_view(mem) if buckets is None
+                      else (mem.blooms, buckets))
     return bl_i32, bc_i32, kernel_filter_params(ctx.qf)
 
 
@@ -561,7 +570,29 @@ def run_hops(store: RecordStore, codes, mem: InMemory, ctx: QueryCtx,
     gathers them from ``store`` with no host synchronisation; the disk
     tier's callable (``storage/disk.py``) copies each hop's ids to the host
     to read their pages, and in strict_in the gated attribute reads too.
-    ``distance_fn`` is :func:`_hop_step`'s."""
+    ``distance_fn`` is :func:`_hop_step`'s.
+
+    On the device backend's clean hop (:func:`_graphable`) one hop, the
+    frontier's fetch (:func:`_issue`) and :func:`_hop_step`, is captured at
+    the first call of its shape and replayed ``n_hops`` times
+    (:class:`_HopGraph`): a few launches a hop in place of a few hundred
+    PyTorch calls. Every other call runs :func:`_run_hops_eager`. Both run
+    the same kernels on the same data in the same order, so they agree bit
+    for bit (the eager loop's last fetch, which no hop consumes, is not
+    replayed)."""
+    if n_hops > 0 and _graphable(store, codes, st, params, fetch_fn,
+                                 distance_fn):
+        return _run_graphed(store, codes, mem, ctx, st, n_hops, params)
+    return _run_hops_eager(store, codes, mem, ctx, st, n_hops, params,
+                           fetch_fn, distance_fn)
+
+
+def _run_hops_eager(store: RecordStore, codes, mem: InMemory, ctx: QueryCtx,
+                    st: HopState, n_hops: int, params: SearchParams,
+                    fetch_fn=local_fetch, distance_fn=None) -> HopState:
+    """:func:`run_hops` one PyTorch call at a time: the path of every call
+    that is not the device backend's clean hop, and the reference its CUDA
+    graphs are held to."""
     mc = _mc(mem, ctx, params, distance_fn)
     rec = _issue(store, st, params, fetch_fn)
     for _ in range(n_hops):
@@ -569,6 +600,211 @@ def run_hops(store: RecordStore, codes, mem: InMemory, ctx: QueryCtx,
                        fetch_fn, distance_fn)
         rec = _issue(store, st, params, fetch_fn)
     return st
+
+
+def _graphable(store: RecordStore, codes, st: HopState,
+               params: SearchParams, fetch_fn, distance_fn) -> bool:
+    """Whether :func:`run_hops` replays a captured hop: on CUDA tensors of
+    a store that keeps hop graphs, with :func:`local_fetch` (no host copy
+    inside a hop), the default distance and no fault plan."""
+    return (store.hop_graphs is not None and codes.is_cuda
+            and st.visited.is_cuda and fetch_fn is local_fetch
+            and default_distance(distance_fn) and params.fault_plan is None)
+
+
+_capture = threading.local()    # .graph: the _HopGraph this thread captures
+
+
+def _entry(name: str, *args):
+    """``kops.<name>(*args)``: a hand-written kernel entry of the hop step.
+    While this thread captures a hop (:meth:`_HopGraph.capture`), the call
+    is left out of the graph (:meth:`_HopGraph.hole`) and made from its
+    entry at every replay instead."""
+    graph = getattr(_capture, "graph", None)
+    if graph is None:
+        return getattr(kops, name)(*args)
+    return graph.hole(name, args)
+
+
+def _like(t: torch.Tensor) -> torch.Tensor:
+    return torch.empty(t.shape, dtype=t.dtype, device=t.device)
+
+
+def _loaded(ctx: QueryCtx, st: HopState, mc) -> tuple:
+    """The tensors a hop graph copies in at a chunk's start: the query
+    constants, the state and the fused kernel's filter parameters (its
+    blooms and bucket words, the in-memory tier's own, are read in
+    place)."""
+    extra = () if mc is None else tuple(mc[2])
+    return (ctx.queries, ctx.tables, *ctx.qf, ctx.merged_tbl, *st) + extra
+
+
+def _reads(store: RecordStore, codes, mc) -> tuple:
+    """The tensors a hop graph reads in place: the store's, the codes and
+    the fused kernel's blooms and bucket words."""
+    return (store.vectors, store.neighbors, store.dense_neighbors,
+            store.rec_labels, store.rec_values, store.cand_first, codes) + (
+                () if mc is None else tuple(mc[:2]))
+
+
+class _HopGraph:
+    """One hop of one shape over static buffers, which :meth:`load` fills
+    from a chunk's own tensors: :meth:`step`, captured (:meth:`capture`)
+    as CUDA graphs with a hole for each call of a hand-written kernel
+    entry, so ``k`` replays (:meth:`replay`) advance ``k`` hops.
+
+    A hole keeps the hand-written kernels ordinary launches: each replay
+    calls ``kops.hop_fused_gather`` and ``kops.or_scatter_`` between the
+    graphs as the eager loop calls them, so ``kops.LAUNCHES`` counts them
+    where they launch, a profiler finds them inside their entry's call,
+    and only PyTorch's own kernels are replayed."""
+
+    def __init__(self, store, codes, mem: InMemory, ctx: QueryCtx,
+                 st: HopState, mc):
+        self.reads = _reads(store, codes, mc)
+        self.ctx = QueryCtx(_like(ctx.queries), _like(ctx.tables),
+                            QueryFilter(*(_like(t) for t in ctx.qf)),
+                            _like(ctx.merged_tbl))
+        self.st = HopState(*(_like(t) for t in st))
+        self.mc = None if mc is None else (
+            mc[0], mc[1], tuple(_like(t) for t in mc[2]))
+        self.static = _loaded(self.ctx, self.st, self.mc)
+        # the captured hop in order: CUDA graphs, and between them the
+        # holes as (entry name, its arguments, the buffers of its results)
+        self.parts: list = []
+        self.pool = None
+
+    def load(self, ctx: QueryCtx, st: HopState, mc) -> None:
+        for s, t in zip(self.static, _loaded(ctx, st, mc)):
+            s.copy_(t)
+
+    def step(self, store, codes, mem, params: SearchParams) -> None:
+        """One hop on the static buffers."""
+        rec = _issue(store, self.st, params)
+        new = _hop_step(store, codes, mem, params, self.ctx, self.mc,
+                        self.st, rec)
+        for s, t in zip(self.st, new):
+            if t is not s:
+                s.copy_(t)
+
+    def capture(self, store, codes, mem, params: SearchParams,
+                pool) -> None:
+        """Capture :meth:`step` on a side stream after one eager run of it
+        (the warm-up: every kernel module is loaded before the capture).
+        Both advance the loaded state, which the caller loads again."""
+        self.step(store, codes, mem, params)
+        cur = torch.cuda.current_stream(codes.device)
+        side = torch.cuda.Stream(codes.device)
+        side.wait_stream(cur)
+        self.pool = pool
+        with torch.cuda.stream(side):
+            self._begin()
+            _capture.graph = self
+            try:
+                self.step(store, codes, mem, params)
+            finally:
+                _capture.graph = None
+                self.parts[-1].capture_end()
+        cur.wait_stream(side)
+        trace.count(graph_captures=1)
+
+    def _begin(self) -> None:
+        graph = torch.cuda.CUDAGraph()
+        # thread_local: the server captures on its worker thread while
+        # other threads may call into CUDA
+        graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
+        self.parts.append(graph)
+
+    def hole(self, name: str, args: tuple):
+        """End the graph being captured at a call of ``kops.<name>``, note
+        the call, and begin the next graph. Its arguments stay held, so
+        their buffers stay where the graphs read and write them; the fused
+        kernel's results get buffers of their own (allocated outside the
+        pool), which each replay's call is copied into. ``or_scatter_``
+        works in place and returns its ``words``."""
+        self.parts[-1].capture_end()
+        if name == "or_scatter_":
+            out = args[0]
+        else:
+            ids = args[4]
+            out = (torch.empty(ids.shape, dtype=torch.float32,
+                               device=ids.device),
+                   torch.empty(ids.shape, dtype=torch.bool,
+                               device=ids.device))
+        self.parts.append((name, args, out))
+        self._begin()
+        return out
+
+    def replay(self) -> None:
+        """One captured hop: the graphs in turn, each hole's entry called
+        between them."""
+        for part in self.parts:
+            if isinstance(part, tuple):
+                name, args, out = part
+                got = getattr(kops, name)(*args)
+                if got is not out:
+                    for o, g in zip(out, got):
+                        o.copy_(g)
+            else:
+                part.replay()
+
+    def unload(self, visited: torch.Tensor) -> HopState:
+        """Fresh tensors of the static state; ``visited``, the chunk's own,
+        takes the static words in place, as the eager loop updates it."""
+        visited.copy_(self.st.visited)
+        return HopState(*(visited if s is self.st.visited else s.clone()
+                          for s in self.st))
+
+
+def _run_graphed(store: RecordStore, codes, mem: InMemory, ctx: QueryCtx,
+                 st: HopState, n_hops: int, params: SearchParams) -> HopState:
+    """:func:`run_hops` by replay: the store's :class:`_HopGraph` of this
+    shape, captured at its first use, replayed ``n_hops`` times. Graphs
+    are keyed on everything that fixes a shape or a branch of the body:
+    the mode, pool length, beam width, ``max_hops``, ``l_valid``, whether
+    the fused kernel's inputs are set, and the shape and dtype of every
+    tensor loaded (the width B among them); one is captured again when a
+    tensor it reads in place is another. The bucket codes are put in
+    int32 once for each in-memory tier.
+
+    The graphs of a store share one memory pool. That is safe because the
+    pool holds only a hop's scratch: what one graph leaves there for the
+    next is read within the same hop, and every other tensor a body makes
+    is dropped when its capture ends (the new state is copied into static
+    buffers allocated outside the pool), so a replay reads nothing that
+    another hop left. And no two uses overlap: each holds the store's lock
+    from the first copy in to the last copy out, and its work waits on the
+    stream for the end of the previous use's (``done``), whatever stream
+    that ran on. The tally counts the hop steps replayed here
+    (``hop_steps_graphed``)."""
+    cache = store.hop_graphs
+    cur = torch.cuda.current_stream(codes.device)
+    with cache.lock:
+        if cache.pool is None:
+            cache.pool = torch.cuda.graph_pool_handle()
+            cache.done = torch.cuda.Event()
+        cur.wait_event(cache.done)
+        if cache.buckets is None or cache.buckets[0] is not mem:
+            cache.buckets = (mem, mem.bucket_codes.int())
+        mc = _mc(mem, ctx, params, buckets=cache.buckets[1])
+        key = (params.mode, params.l_search, params.beam_width,
+               params.max_hops, params.l_valid or params.l_search,
+               mc is not None,
+               tuple((tuple(t.shape), t.dtype) for t in _loaded(ctx, st, mc)))
+        g = cache.graphs.get(key)
+        if g is None or any(a is not b for a, b in
+                            zip(g.reads, _reads(store, codes, mc))):
+            g = _HopGraph(store, codes, mem, ctx, st, mc)
+            g.load(ctx, st, mc)
+            g.capture(store, codes, mem, params, cache.pool)
+            cache.graphs[key] = g
+        g.load(ctx, st, mc)
+        for _ in range(n_hops):
+            g.replay()
+        out = g.unload(st.visited)
+        cache.done.record(cur)
+    trace.count(hop_steps_graphed=n_hops)
+    return out
 
 
 def _finalize(st: HopState, params: SearchParams) -> SearchResult:

@@ -9,11 +9,13 @@ profiler it calls no torch operator.
 
 :func:`batch` opens a tally for one engine call on the calling thread (the
 server flushes on its own worker): exact counters (``groups``,
-``hop_steps``, ``row_hops_live``, ``row_hops_dispatched``), the self
-seconds of each span name (``host_s``) and the seconds the host blocked on
-the device (``device_wait_s``). :func:`to_host` and :func:`sync` are the
-served path's blocking readbacks, timed into ``device_wait_s``. Outside a
-batch, spans and counters record nothing.
+``hop_steps``, ``row_hops_live``, ``row_hops_dispatched``, and of the hop
+loop's CUDA graphs ``hop_steps_graphed``, the hop steps run by replay, and
+``graph_captures``), the self seconds of each span name (``host_s``) and
+the seconds the host blocked on the device (``device_wait_s``).
+:func:`to_host` and :func:`sync` are the served path's blocking readbacks,
+timed into ``device_wait_s``. Outside a batch, spans and counters record
+nothing.
 """
 from __future__ import annotations
 
@@ -25,7 +27,8 @@ import torch
 import torch.autograd.profiler as _autograd_profiler
 
 PREFIX = "repro."
-COUNTERS = ("groups", "hop_steps", "row_hops_live", "row_hops_dispatched")
+COUNTERS = ("groups", "hop_steps", "row_hops_live", "row_hops_dispatched",
+            "hop_steps_graphed", "graph_captures")
 
 
 class _Local(threading.local):

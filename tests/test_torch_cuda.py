@@ -402,7 +402,9 @@ def test_disk_backend_equals_device_backend_on_card(cuda, tmp_path):
     config): ``Index.build(store="disk")``'s answers equal those of the same
     index on the device backend under every policy (the pre route and the
     scan rung included), clean and under a fault plan, and its hop loop
-    launches the same kernels through the same entries."""
+    launches the same kernels through the same entries. Each device run is
+    made once before it is counted, so that its hop graphs are captured
+    (the capture's warm-up hop launches kernels of its own)."""
     import copy
     import dataclasses
     from repro_torch import api as tapi
@@ -434,6 +436,7 @@ def test_disk_backend_equals_device_backend_on_card(cuda, tmp_path):
                                              fault_plan=plan)
                          for r in reqs]):
         for run in ("search_batch", "approx_scan_batch"):
+            getattr(idx, run)(reqs, with_metadata=False, scfgs=scfgs)
             tops.reset_launches()
             want, sw = getattr(idx, run)(reqs, with_stats=True,
                                          with_metadata=False, scfgs=scfgs)
@@ -570,6 +573,107 @@ def test_sharded_runner_on_card_equals_unsharded(card_and_cpu_engines, mode,
     _fields_equal(got, on_cpu, f"sharded S={shards} {mode} card vs CPU")
     assert launches["or_scatter"] > 0
     assert (launches["hop_fused"] > 0) == (mode == "spec_in")
+
+
+def _tiled(qf, queries, b):
+    """The batch's filters and queries repeated to ``b`` rows."""
+    idx = np.arange(b) % queries.shape[0]
+    return type(qf)(*(np.asarray(x)[idx] for x in qf)), queries[idx]
+
+
+def _states_equal(got, want, tag):
+    for f, a, b in zip(got._fields, got, want):
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), f"{tag}: {f}"
+
+
+@pytest.mark.parametrize("mode", ["post", "spec_in"])
+def test_hop_graph_equals_eager_loop_on_card(card_and_cpu_engines, mode,
+                                            monkeypatch):
+    """``run_hops`` on the card replays a captured hop. Over a chunk at
+    width 64 (the capture), a second chunk there (replays only), and, after
+    a compaction to width 8, a chunk there (a second capture), every
+    ``HopState`` field, the visited words included, equals
+    ``_run_hops_eager``'s bit for bit; the replayed chunk's kernel launches
+    equal the eager chunk's, and the tally counts one capture a width. In
+    the replayed chunk every hand-written kernel the profiler sees on the
+    card was launched by a call of its ``ops`` entry: one kernel a call,
+    as many as ``ops.LAUNCHES`` counts."""
+    from repro_torch.core import search as tsearch
+    from repro_torch.utils import trace
+    gpu, _, ds, qf, _ = card_and_cpu_engines
+    qf64, q64 = _tiled(qf, ds.queries, 64)
+    p = tsearch.SearchParams(l_search=24, k=5, max_hops=80, beam_width=2,
+                             mode=mode, l_valid=16)
+    ctx, st = tsearch.init_search(gpu.store, gpu.codes, gpu.codebook,
+                                  gpu.mem, qf64, q64, gpu.medoid, p)
+
+    def chunk(run, c, s):
+        tops.reset_launches()
+        with trace.batch() as t:
+            out = run(gpu.store, gpu.codes, gpu.mem, c, s, 6, p)
+        torch.cuda.synchronize()
+        return out, tops.snapshot(), t["graph_captures"]
+
+    def clone(s):
+        return tsearch.HopState(*(t.clone() for t in s))
+
+    want, _, _ = chunk(tsearch._run_hops_eager, ctx, clone(st))
+    got, _, caps = chunk(tsearch.run_hops, ctx, clone(st))
+    assert caps == 1
+    _states_equal(got, want, f"{mode} width 64, first chunk")
+    assert bool(want.active.any())
+    want, eager_launches, _ = chunk(tsearch._run_hops_eager, ctx, want)
+    entry_calls = {"hop_fused_gather": 0, "or_scatter_": 0}
+    for name in entry_calls:
+        def counted(*a, _fn=getattr(tops, name), _name=name):
+            entry_calls[_name] += 1
+            return _fn(*a)
+        monkeypatch.setattr(tops, name, counted)
+    cuda_acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=cuda_acts) as prof:
+        got, graph_launches, caps = chunk(tsearch.run_hops, ctx, got)
+    kernels = [ev.name for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA]
+    assert caps == 0
+    assert graph_launches == eager_launches
+    assert entry_calls == {"hop_fused_gather": graph_launches["hop_fused"],
+                           "or_scatter_": graph_launches["or_scatter"]}
+    assert sum("hop_fused_kernel" in k for k in kernels) \
+        == graph_launches["hop_fused"]
+    assert sum("or_scatter_kernel" in k for k in kernels) \
+        == graph_launches["or_scatter"]
+    assert eager_launches["or_scatter"] == 6
+    assert eager_launches["hop_fused"] == (6 if mode == "spec_in" else 0)
+    _states_equal(got, want, f"{mode} width 64, replayed chunk")
+    rows = torch.arange(0, 64, 8, device=gpu.device)
+    ctx8 = tsearch.take_rows(ctx, rows)
+    want, _, _ = chunk(tsearch._run_hops_eager, ctx8,
+                       tsearch.take_rows(want, rows))
+    got, _, caps = chunk(tsearch.run_hops, ctx8,
+                         tsearch.take_rows(got, rows))
+    assert caps == 1
+    _states_equal(got, want, f"{mode} width 8 after compaction")
+
+
+@pytest.mark.parametrize("mode", ["post", "spec_in", "strict_in"])
+def test_pipelined_on_card_equals_single_shot(card_and_cpu_engines, mode):
+    """``filtered_search_pipelined`` on the card, whose chunks replay hop
+    graphs, equals ``filtered_search`` (no graph) on every field bit for
+    bit, and its tally counts every hop step as graphed."""
+    from repro_torch.core import search as tsearch
+    from repro_torch.utils import trace
+    gpu, _, ds, qf, ents = card_and_cpu_engines
+    e_arg = ents if mode == "strict_in" else None
+    args = _search_args(gpu, ds, qf, mode)
+    want = tsearch.filtered_search(*args, entries=e_arg)
+    with trace.batch() as t:
+        got = tsearch.filtered_search_pipelined(*args, entries=e_arg,
+                                                hop_chunk=8)
+    _fields_equal(got, want, f"pipelined vs single-shot {mode}")
+    assert t["hop_steps_graphed"] == t["hop_steps"] > 0
+    assert t["graph_captures"] >= 1
 
 
 @pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "mixtral-8x22b"])
