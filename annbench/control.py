@@ -21,7 +21,17 @@ plants a fault in the program instead: its hop loop stops after
 ``--max-hops`` hops (the cell's configuration otherwise), and each seed is
 a whole run of the cell (build, warm-up, a window of ``--seconds``, the
 check), whose numbers are printed the same way. That is the reading which
-sets the upper end of ``recall_shortfall``'s limit.
+sets the upper end of ``recall_shortfall``'s limit in the cells whose
+queries walk the graph.
+
+    python3 annbench/control.py --workload <cell> --seeds 1 2 3 \
+        --l-rerank-delta -54 --seconds 20
+
+plants the fault that the ``pre`` route feels, which no hop budget
+touches: its re-rank pool (the route's pool length plus
+``l_rerank_delta``, the records it re-ranks exactly after the PQ scan of
+the filter's posting) is cut. At L 32 a one-tag filter's pool is 64, so
+-54 leaves 10: the route's answer is the PQ scan's own top-10.
 """
 import argparse
 import json
@@ -50,31 +60,33 @@ def control_numbers(files: dict, seed: int, requests: int, device,
     k = int(traffic["request"]["k"])
     width = config["index"]["max_labels"]
     low = Reference(corpus.vectors, corpus.tag_offsets, corpus.tag_flat,
-                    width, device, dtype=dtype)
+                    corpus.numerics, width, device, dtype=dtype)
     used = sorted(set(rows))
     ids = np.full((len(pool), k), -1, np.int64)
     dists = np.full((len(pool), k), np.inf, np.float64)
     ids[used], dists[used] = low.search(pool.vectors[used], pool.tags[used],
-                                        k)
+                                        pool.ranges[used], k)
     del low
     ref = Reference(corpus.vectors, corpus.tag_offsets, corpus.tag_flat,
-                    width, device)
+                    corpus.numerics, width, device)
     exact = np.full((len(pool), k), -1, np.int64)
-    exact[used] = ref.search(pool.vectors[used], pool.tags[used], k)[0]
+    exact[used] = ref.search(pool.vectors[used], pool.tags[used],
+                             pool.ranges[used], k)[0]
     answers = [(r, ids[r][ids[r] >= 0], dists[r][ids[r] >= 0])
                for r in rows]
-    return judge.compare(answers, 0, pool.vectors, pool.tags, exact, ref)
+    return judge.compare(answers, 0, pool.vectors, pool.tags, pool.ranges,
+                         exact, ref)
 
 
 def fault_checks(files: dict, cell: str, seed: int, seconds: float,
-                 max_hops: int, device) -> dict:
-    """A whole run of the cell with the program's hop loop cut to
-    ``max_hops`` hops: its result, ``checks`` last."""
+                 search: dict, device) -> dict:
+    """A whole run of the cell with the program's ``SearchConfig`` fields
+    ``search`` set (the fault): its result, ``checks`` last."""
     import copy
 
     from annbench import harness
     files = copy.deepcopy(files)
-    files["config"]["search"]["max_hops"] = max_hops
+    files["config"]["search"].update(search)
     return harness.run_cell(cell, seed, seconds, False, device, ROOT,
                             time.perf_counter(), files=files)
 
@@ -88,25 +100,33 @@ def main(argv=None) -> int:
     ap.add_argument("--max-hops", type=int, default=0,
                     help="run the program with its hop loop cut to this "
                     "many hops instead of the control")
+    ap.add_argument("--l-rerank-delta", type=int, default=None,
+                    help="run the program with the pre route's re-rank "
+                    "pool cut by this l_rerank_delta instead of the control")
     ap.add_argument("--seconds", type=float, default=20.0,
-                    help="the window of a --max-hops run")
+                    help="the window of a run with a fault")
     args = ap.parse_args(argv)
     sys.path[:0] = [str(ROOT), str(ROOT / "src")]
     from annbench import harness, judge
     files = harness.cell_files(harness.load_bench(ROOT), args.workload, ROOT)
     n = args.requests or int(files["traffic"]["pool"])
+    fault = {}
+    if args.max_hops:
+        fault["max_hops"] = args.max_hops
+    if args.l_rerank_delta is not None:
+        fault["l_rerank_delta"] = args.l_rerank_delta
     for seed in args.seeds:
         t0 = time.perf_counter()
-        if args.max_hops:
+        if fault:
             res = fault_checks(files, args.workload, seed, args.seconds,
-                               args.max_hops, args.device)
+                               fault, args.device)
             correct, checks, n = (res["correct"], res["checks"],
                                   res["attempted"])
         else:
             numbers = control_numbers(files, seed, n, args.device)
             correct, checks = judge.verdict(numbers, files["limits"])
         print(json.dumps({"workload": args.workload, "seed": seed,
-                          "max_hops": args.max_hops or None,
+                          "fault": fault or None,
                           "requests": n, "correct": correct,
                           "seconds": time.perf_counter() - t0,
                           "checks": checks}), flush=True)

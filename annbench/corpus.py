@@ -15,6 +15,14 @@ a Zipf(``zipf_a``) law over a vocabulary of ``vocab`` tags; repeats within
 a record are dropped. Everything is vectorised numpy, so the same seed
 gives the same arrays on any machine. The query vectors are drawn from the
 same law and held out of the corpus.
+
+A configuration may give its records numeric fields, as a list
+``numeric`` in the ``corpus`` block, one entry a field:
+``{"name": "v", "law": "lognormal", "mu": 0.0, "sigma": 1.0}`` (exp of a
+normal) or ``{"name": "v", "law": "uniform", "lo": 0.0, "hi": 1.0}``. Each
+field is drawn in float32 from a stream of its own, independent of the
+vectors, the tags and the other fields. Without the key the records carry
+none: ``numerics`` is (N, 0).
 """
 from __future__ import annotations
 
@@ -30,6 +38,8 @@ class Corpus:
     tag_flat: np.ndarray       # (nnz,) int32 tag ids, ascending per record
     vocab: int
     held_out: np.ndarray       # (Q, dim) float32, drawn like vectors
+    numerics: np.ndarray       # (N, F) float32, one column a numeric field
+    num_names: tuple           # (F,) the fields' names, in column order
 
     @property
     def n(self) -> int:
@@ -87,11 +97,32 @@ def make_tags(spec: dict, seed: int, n: int) -> tuple[np.ndarray, np.ndarray]:
     return offsets, flat
 
 
+def make_numeric(field: dict, seed: int, n: int) -> np.ndarray:
+    """(n,) float32 values of one numeric field, from its own stream."""
+    rng = rng_for(seed, "numeric:" + field["name"])
+    law = field["law"]
+    if law == "lognormal":
+        z = rng.standard_normal(n, dtype=np.float32)
+        return np.exp(np.float32(field["mu"]) + np.float32(field["sigma"]) * z)
+    if law == "uniform":
+        lo, hi = np.float32(field["lo"]), np.float32(field["hi"])
+        return lo + (hi - lo) * rng.random(n, dtype=np.float32)
+    raise ValueError(f"numeric field {field['name']!r}: unknown law {law!r}")
+
+
 def make_corpus(spec: dict, seed: int, held_out: int) -> Corpus:
     """The corpus of a configuration's ``corpus`` block, with ``held_out``
     more vectors drawn from the same law for queries."""
     n = int(spec["n"])
     x = make_vectors(spec, seed, n + held_out)
     offsets, flat = make_tags(spec, seed, n)
+    fields = spec.get("numeric", [])
+    names = tuple(f["name"] for f in fields)
+    if len(set(names)) != len(names):
+        raise ValueError(f"numeric fields named twice: {names}")
+    nums = np.zeros((n, len(fields)), np.float32)
+    for j, f in enumerate(fields):
+        nums[:, j] = make_numeric(f, seed, n)
     return Corpus(vectors=x[:n], tag_offsets=offsets, tag_flat=flat,
-                  vocab=int(spec["vocab"]), held_out=x[n:])
+                  vocab=int(spec["vocab"]), held_out=x[n:], numerics=nums,
+                  num_names=names)

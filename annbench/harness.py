@@ -3,9 +3,10 @@
 Everything that belongs to a configuration, a traffic mix, a cell's limits
 or a per-layer metric is a file found by its name in ``BENCHMARK.json``:
 
-- ``configs/<config>.json``: the deployment (corpus sizes and the
-  program's ``IndexConfig``, ``SearchConfig``, ``StorageConfig`` and
-  ``ServerConfig`` values, ``store`` "device" or "disk");
+- ``configs/<config>.json``: the deployment (corpus sizes and numeric
+  fields, the program's ``IndexConfig``, ``SearchConfig``,
+  ``StorageConfig`` and ``ServerConfig`` values, ``store`` "device" or
+  "disk");
 - ``traffic/<mix>.json``: the parameters ``loadgen.py`` reads;
 - ``limits/<cell>.json``: the limits of ``judge.py``'s numbers;
 - ``metrics/<metric>.py``: a ``read(obs)`` that returns the metric's value
@@ -16,9 +17,11 @@ seconds by stage), ``server`` (``ServerStats`` counters' change over the
 window), ``disk`` (``DiskRecordStore.delta`` over the window, None on the
 device backend), ``pages_read`` (the bytes the process's read system
 calls returned in the window, from the kernel's own accounting, in the
-disk tier's 4 KB pages; None on the device backend), ``completed`` (requests sent in the window and answered), and in
-a traced run ``query_stats`` (the engine's ``QueryStats`` of every batch of
-the window) and ``trace`` (``trace.reduce_trace``'s numbers).
+disk tier's 4 KB pages; None on the device backend), ``completed``
+(requests sent in the window and answered), ``qps`` (``stats.qps`` over
+the window, in a traced run with its traced rounds), and in a traced run
+``query_stats`` (the engine's ``QueryStats`` of every batch of the window)
+and ``trace`` (``trace.reduce_trace``'s numbers).
 """
 from __future__ import annotations
 
@@ -86,12 +89,17 @@ def cell_metrics(bench: dict, cell: str, kind: str) -> list:
 
 
 def make_requests(pool: loadgen.Pool, traffic: dict) -> list:
-    from repro_torch.api import SearchRequest, Tag
+    """One request a pool row: its tags ANDed, then a range over each field
+    whose range is not open."""
+    from repro_torch.api import Num, SearchRequest, Tag
     out = []
-    for vec, tags in zip(pool.vectors, pool.tags):
+    for vec, tags, ranges in zip(pool.vectors, pool.tags, pool.ranges):
+        terms = [Tag("tag") == int(t) for t in tags[tags >= 0]]
+        terms += [Num(name).between(float(lo), float(hi))
+                  for name, (lo, hi) in zip(pool.fields, ranges)
+                  if lo > -np.inf or hi < np.inf]
         expr = None
-        for t in tags[tags >= 0]:
-            term = Tag("tag") == int(t)
+        for term in terms:
             expr = term if expr is None else expr & term
         out.append(SearchRequest(query=vec, filter=expr,
                                  **traffic["request"]))
@@ -107,12 +115,12 @@ def build_index(config: dict, corpus, device, slab_dir=None):
     from repro_torch.storage import StorageConfig
     engine = FilteredANNEngine.build(
         corpus.vectors, corpus.tag_offsets, corpus.tag_flat, corpus.vocab,
-        np.zeros((corpus.n, 0), np.float32), IndexConfig(**config["index"]),
-        device=device)
+        corpus.numerics, IndexConfig(**config["index"]), device=device)
     if config["store"] == "disk":
         engine.to_disk(slab_dir, StorageConfig(**config["storage"]))
     vocab = {("tag", t): t for t in range(corpus.vocab)}
-    return Index(engine, vocab, Schema(tags=("tag",)),
+    return Index(engine, vocab, Schema(tags=("tag",),
+                                       nums=corpus.num_names),
                  SearchConfig(**config["search"]))
 
 
@@ -226,21 +234,23 @@ def run_cell(cell: str, seed: int, seconds: float, traced: bool, device,
     # the reference, once the program's state is freed
     records, t0 = out.pop("records"), out.pop("t0")
     ref = Reference(corpus.vectors, corpus.tag_offsets, corpus.tag_flat,
-                    config["index"]["max_labels"], dev)
+                    corpus.numerics, config["index"]["max_labels"], dev)
     used = sorted({r["pool"] for r in records})
     k = int(traffic["request"]["k"])
     exact_ids = np.full((len(pool), k), -1, np.int64)
-    exact_ids[used] = ref.search(pool.vectors[used], pool.tags[used], k)[0]
+    exact_ids[used] = ref.search(pool.vectors[used], pool.tags[used],
+                                 pool.ranges[used], k)[0]
     answered = [r for r in records if r["result"] is not None]
     answers = [(r["pool"], np.asarray(r["result"].ids),
                 np.asarray(r["result"].dists)) for r in answered]
     failed = len(records) - len(answered)
     numbers = judge.compare(answers, failed, pool.vectors, pool.tags,
-                            exact_ids, ref)
+                            pool.ranges, exact_ids, ref)
     correct, checks = judge.verdict(numbers, files["limits"])
 
     obs = out.pop("obs")
     obs["completed"] = len(answered)
+    obs["qps"] = stats.qps(answered, t0)
     result = {"correct": correct, "attempted": len(records),
               "failed": failed}
     metrics = {}
@@ -251,7 +261,7 @@ def run_cell(cell: str, seed: int, seconds: float, traced: bool, device,
                 metrics[m["name"]] = {"value": float(v), "unit": m["unit"]}
     else:
         values = {
-            "qps": stats.qps(answered, t0),
+            "qps": obs["qps"],
             "recall_at_10": 1.0 - numbers["recall_shortfall"],
             "setup_s": out["setup_s"],
         }

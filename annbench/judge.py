@@ -6,9 +6,9 @@ compared, each against the limit of the cell's ``limits/<cell>.json``:
 
 - ``unanswered``: requests submitted in the window that never came back or
   failed (exact: limit 0);
-- ``filter_violations``: returned ids that do not exist or do not carry
-  every tag of the request's filter, from the generated tag arrays (exact:
-  limit 0);
+- ``filter_violations``: returned ids that do not exist, do not carry
+  every tag of the request's filter or have a numeric field outside its
+  range, from the generated arrays (exact: limit 0);
 - ``duplicate_ids``: ids returned twice in one answer (exact: limit 0);
 - ``dist_gap``: the largest relative gap between a returned distance and
   the reference's squared L2 distance of the same id, which ties each id to
@@ -16,8 +16,10 @@ compared, each against the limit of the cell's ``limits/<cell>.json``:
   readings; PERF.md gives them);
 - ``recall_shortfall``: 1 - the mean over the answers of |returned ids ∩
   the exact filtered top-k| ÷ |exact top-k|, which holds the ids to the
-  exact answer (its limit lies between the program's readings and those of
-  a hop loop cut short; PERF.md gives them).
+  exact answer (its limit lies between the program's readings and the
+  least of those of the control and of a fault planted in the program: a
+  hop loop cut short, or the ``pre`` route's re-rank pool cut; PERF.md
+  gives them).
 """
 from __future__ import annotations
 
@@ -30,11 +32,12 @@ NAMES = ("unanswered", "filter_violations", "duplicate_ids", "dist_gap",
 
 
 def compare(answers, unanswered: int, queries: np.ndarray,
-            q_tags: np.ndarray, exact: np.ndarray, ref) -> dict:
+            q_tags: np.ndarray, q_ranges: np.ndarray, exact: np.ndarray,
+            ref) -> dict:
     """The five numbers. ``answers`` is a list of (pool index, ids,
-    dists); ``queries``/``q_tags`` are the pool's and ``exact`` its exact
-    filtered top-k ids (-1 padded, from ``ref.search``); ``ref`` a
-    :class:`reference.Reference`."""
+    dists); ``queries``/``q_tags``/``q_ranges`` are the pool's and
+    ``exact`` its exact filtered top-k ids (-1 padded, from
+    ``ref.search``); ``ref`` a :class:`reference.Reference`."""
     violations = dups = 0
     gap = 0.0
     block = 4096
@@ -48,7 +51,7 @@ def compare(answers, unanswered: int, queries: np.ndarray,
             dists[i, :len(a_d)] = a_d
         rows = np.array([a[0] for a in part], np.int64)
         live = ids >= 0
-        ok = ref.filter_ok(q_tags[rows], ids)
+        ok = ref.filter_ok(q_tags[rows], q_ranges[rows], ids)
         violations += int((live & ~ok).sum())
         for row in ids:
             got = row[row >= 0]

@@ -33,10 +33,13 @@ def test_control_is_not_correct(cell):
     assert checks["dist_gap"]["value"] > checks["dist_gap"]["limit"]
 
 
-def _run(cell, monkeypatch, fault=None, corpus=None, max_hops=None):
+def _run(cell, monkeypatch, fault=None, corpus=None, max_hops=None,
+         search=None, traffic=None):
     monkeypatch.setattr(harness, "DRAIN_S", 2.0)
     files = _small(cell)
     files["config"]["corpus"].update(corpus or {})
+    files["config"]["search"].update(search or {})
+    files["traffic"].update(traffic or {})
     if max_hops is not None:
         files["config"]["search"]["max_hops"] = max_hops
     if fault is not None:
@@ -105,6 +108,29 @@ def test_hop_loop_cut_short_is_not_correct(monkeypatch, max_hops):
                max_hops=max_hops)
     c = res["checks"]
     if max_hops is None:
+        assert res["correct"], c
+        return
+    assert not res["correct"], c
+    assert c["recall_shortfall"]["value"] > c["recall_shortfall"]["limit"]
+    assert c["dist_gap"]["value"] <= c["dist_gap"]["limit"]
+    assert c["filter_violations"]["value"] == 0
+
+
+@pytest.mark.parametrize("delta", [None, -54], ids=["sound", "rerank_cut"])
+def test_pre_route_rerank_cut_is_not_correct(monkeypatch, delta):
+    """The rare-tag cell's queries take the pre route, which no hop budget
+    touches. With its re-rank pool cut to k (``l_rerank_delta`` -54 at L 32,
+    ``control.py --l-rerank-delta``) the route answers with the PQ scan's
+    own top-10: ids that pass the filter with their exact distances, which
+    only their recall against the exact top-10 catches. The corpus is
+    larger than ``_small``'s and its ceiling higher, so that postings hold
+    more records than the cut pool."""
+    cell = "hbm-tags.rare1-c64"
+    res = _run(cell, monkeypatch, corpus={"n": 4000, "vocab": 2000},
+               traffic={"tag_share_max": 0.03},
+               search=None if delta is None else {"l_rerank_delta": delta})
+    c = res["checks"]
+    if delta is None:
         assert res["correct"], c
         return
     assert not res["correct"], c

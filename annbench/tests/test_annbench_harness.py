@@ -103,8 +103,10 @@ def test_reference_exact_top_k_on_a_tiny_case():
     q = rng.standard_normal((6, 8)).astype(np.float32)
     qt = np.array([[0, -1], [1, 2], [3, 4], [4, -1], [0, 1], [2, -1]],
                   np.int32)
-    ref = Reference(x, offsets, flat, 16, "cpu")
-    ids, d = ref.search(q, qt, 5)
+    nums = np.zeros((300, 0), np.float32)     # no numeric field
+    open_r = loadgen.open_ranges(6, 0)
+    ref = Reference(x, offsets, flat, nums, 16, "cpu")
+    ids, d = ref.search(q, qt, open_r, 5)
     for i in range(6):
         ok = np.array([all(t in tags[n] for t in qt[i] if t >= 0)
                        for n in range(300)])
@@ -113,7 +115,7 @@ def test_reference_exact_top_k_on_a_tiny_case():
         got = ids[i][ids[i] >= 0]
         np.testing.assert_array_equal(got, want)
         np.testing.assert_allclose(d[i][:got.size], dist[want], rtol=1e-12)
-        assert ref.filter_ok(qt[i:i + 1], got[None]).all()
+        assert ref.filter_ok(qt[i:i + 1], open_r[i:i + 1], got[None]).all()
     assert padded_tags(offsets, flat, 16).shape == (300, 16)
 
 
@@ -135,12 +137,14 @@ def test_readers_on_observations():
            "trace": {"busy_s": 1.0, "window_s": 4.0, "host_ops": 120,
                      "flush_ops": 100, "flush_queries": 10,
                      "entry_least_s": 1.0, "entry_device_s": 4.0},
-           "completed": 8}
+           "completed": 8, "qps": 12.5}
     want = {"server.degraded_share": 0.25, "engine.pre_share": 0.25,
             "search.hops_per_query": 20.0, "dispatch.calls_per_query": 10.0,
             "disk.hit_rate": 0.75, "disk.readahead_share": 0.4,
             "kernels_roofline": 25.0, "device.idle_share": 0.75,
-            "build.seconds": 3.5}
+            "build.seconds": 3.5, "server.qps": 12.5,
+            "engine.pre_share.pre_route": 0.25,
+            "dispatch.calls_per_query.pre_route": 10.0}
     assert {m["name"] for m in BENCH["per_layer"]} == set(want)
     for name, v in want.items():
         assert harness.metric_reader(name)(obs) == pytest.approx(v), name
@@ -157,7 +161,11 @@ def test_each_cell_finds_its_files(cell):
                                     "recall_shortfall"}
     e2e = {m["name"] for m in harness.cell_metrics(BENCH, cell,
                                                     "end_to_end")}
-    assert {"setup_s", "qps", "recall_at_10"} <= e2e
+    per = {m["name"] for m in harness.cell_metrics(BENCH, cell,
+                                                   "per_layer")}
+    assert {"setup_s", "recall_at_10"} <= e2e
+    # the rate is end to end, or per layer where it is too noisy to bound
+    assert ("qps" in e2e) != ("server.qps" in per)
     assert ("pages_per_query" in e2e) == (cfg["store"] == "disk")
 
 
