@@ -29,7 +29,13 @@ Phases, each printing one JSON line:
    the slab entry (``pq_scan/pre``) and on 50,000 ids over the 1M-row store
    through the gathered entry the pre route launches
    (``pq_scan/pre_gather``); approx_probe at 100,000 and 1M rows, and at
-   1M with the L2 evicted (``approx_probe/1M_cold``). ``launch_floor`` is
+   1M with the L2 evicted (``approx_probe/1M_cold``). At M = 64 (a 64 KB
+   table, staged past the 48 KB default by the kernels' opt-in) the
+   gathered hop_fused is held at (64, 512) with two bucket fields and range
+   slots over both (``hop_fused/gather/M64``), and pq_scan on 1M rows
+   (``pq_scan/scan/M64``) and on 50,000 ids over them
+   (``pq_scan/pre_gather/M64``), from a generator of their own.
+   ``launch_floor`` is
    the device time of one launch that reads nothing and writes 4 bytes
    (PyTorch's fill of one int32), with a one-row ``approx_probe`` beside
    it (``launch_floor/approx_probe``, the floor of earlier runs).
@@ -176,6 +182,15 @@ Phases, each printing one JSON line:
    (analytic, at the H100 SXM data sheet's rates). Its launches (none) are
    counted as phase 13's.
 
+14. wide (runs right after phase 3) — the benchmark's LAION-shaped range
+   cell (d 768, PQ M 64, numeric fields width and similarity) cut to
+   50,000 records, built on the card through ``annbench``'s
+   ``build_index``; 64 of its range requests through
+   ``Index.search_batch`` (exact membership of every id, one
+   ``ops.pq_scan_gather`` call a ``pre`` row), then those routed ``in``
+   alone over 5 counted batches: one ``hop_fused`` launch a hop step, each
+   through ``ops.hop_fused_gather``, every hop step a graph replay.
+
 Phase 2 also times ``hop_fused_gather`` at the shard widths B = 32 and 16
 and ``prune_scan`` on 512 and 256 of its 1024 rows (one shard's prune at
 S = 2 and 4), and covers approx_probe and l2_rerank (the latter against its
@@ -186,12 +201,14 @@ fault plan on both and saves on the card to load on the CPU.
 
 Then a ``kernels`` line (launches of hop_fused, or_scatter and prune_scan
 from phase 4 (each row also lists its launches in every phase, phases 8's
-to 13's included, and the line its ``hop_fused_gather``, ``or_scatter_`` and
-``pq_scan_gather`` calls in phase 8), of pq_scan from phase 5, of approx_probe and l2_rerank from
+to 14's included, and the line its ``hop_fused_gather``, ``or_scatter_`` and
+``pq_scan_gather`` calls in phase 8 and phase 14's hop_fused launches a hop
+step), of pq_scan from phase 5, of approx_probe and l2_rerank from
 phase 6; times from phase 2: hop_fused's of the gathered entry with the slab
-entry's and the shard-width rows beside it, or_scatter's of the in-place
-entry with the fresh-table and slab rows beside it, prune_scan's with the
-no-prune and shard-width rows beside it, pq_scan's with its cold, pre and pre_gather rows beside it,
+entry's, the shard-width and the M = 64 rows beside it, or_scatter's of the
+in-place entry with the fresh-table and slab rows beside it, prune_scan's
+with the no-prune and shard-width rows beside it, pq_scan's with its cold,
+pre, pre_gather and M = 64 rows beside it,
 approx_probe's with its cold and 100,000-row rows beside it, and both
 launch floors), the card's
 name and power limit as ``nvidia-smi`` prints them, and last the result
@@ -682,7 +699,90 @@ def kernel_phase(dev) -> dict:
         row["library_ms"], row["library_call_ms"] = time_ms(library)
         row["library_max_abs_err"] = float((lib - want).abs().max())
         out[f"l2_rerank/{tag}"] = row
+    out.update(wide_kernel_rows(dev))
     return {"build_s": build_s, "results": out}
+
+
+def wide_kernel_rows(dev) -> dict:
+    """The kernel rows at M = 64 (768-d vectors at 12 dimensions a
+    subspace; a 64 KB table staged past the 48 KB default, by the kernels'
+    opt-in), from a generator of their own so the other rows keep their
+    inputs: the gathered ``hop_fused`` at (B, C) = (64, 512) with F = 2
+    bucket fields and range slots over both (the range route's hop step
+    at the LAION cell's widths), and ``pq_scan`` on 1M rows and gathered
+    over 50,000 ids of them. Each is bit-identical to its plain version."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    rng = np.random.default_rng(64)
+    out = {}
+    b, c, m, k, f, ql, nr, n = 64, 512, 64, 256, 2, 8, 4, 1_000_000
+    nw = (n + 1 + 31) // 32
+    codes = torch.from_numpy(rng.integers(0, k, (n, m)).astype(np.uint8))
+    host = [
+        codes,
+        torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, n, dtype=np.int64)
+                         .astype(np.int32)),
+        torch.from_numpy(rng.integers(0, 256, (n, f)).astype(np.int32)),
+        torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (b, nw),
+                                      dtype=np.int64).astype(np.int32)),
+        torch.from_numpy(rng.integers(0, n, (b, c)).astype(np.int32)),
+        torch.from_numpy((rng.normal(0, 1, (b, m, k)) ** 2)
+                         .astype(np.float32)),
+        torch.from_numpy(np.stack(
+            [rng.integers(0, 2 ** 16, b), rng.integers(0, 3, b),
+             rng.integers(0, 3, b), rng.integers(0, 2, b)],
+            axis=1).astype(np.int32)),
+        torch.from_numpy(rng.integers(0, 2 ** 12, (b, ql)).astype(np.int32)),
+        # each slot tests field 0, field 1 or nothing
+        torch.from_numpy(rng.integers(-1, f, (b, nr)).astype(np.int32)),
+        torch.from_numpy(rng.integers(0, 128, (b, nr)).astype(np.int32)),
+        torch.from_numpy(rng.integers(128, 256, (b, nr)).astype(np.int32)),
+    ]
+    gargs = [a.to(dev) for a in host]
+    key_k, ok_k = ops.hop_fused_gather(*gargs)
+    key_p, ok_p = ref.hop_fused_gather_ref(*gargs)
+    torch.cuda.synchronize()
+    assert torch.equal(ok_k, ok_p), "hop_fused/gather/M64: ok differs"
+    assert torch.equal(key_k.view(torch.int32), key_p.view(torch.int32)), \
+        "hop_fused/gather/M64: key not bit-identical"
+    nbytes = (b * c * 4 + b * c * (m + 4 + 4 * f) + b * c * 4
+              + b * m * k * 4 + b * (4 + ql + 3 * nr) * 4 + b * c * 5)
+    bms, by = bound(nbytes, b * c * m)
+    out["hop_fused/gather/M64"] = timed(
+        lambda: ops.hop_fused_gather(*gargs),
+        lambda: ref.hop_fused_gather_ref(*gargs), shape=[b, c, m, n], fields=f,
+        max_abs_err=float((key_k - key_p).abs().max()), bound_ms=bms,
+        bound_by=by)
+
+    store, table = gargs[0], gargs[5][0].contiguous()
+    del gargs, host
+    got = ops.pq_scan(store, table)
+    want = ref.pq_scan_ref(store, table)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
+        "pq_scan/scan/M64: not bit-identical"
+    bms, by = bound(n * m + m * k * 4 + n * 4, n * m)
+    out["pq_scan/scan/M64"] = timed(
+        lambda: ops.pq_scan(store, table),
+        lambda: ref.pq_scan_ref(store, table), shape=[n, m, k],
+        max_abs_err=float((got - want).abs().max()), bound_ms=bms,
+        bound_by=by)
+    c = 50_000
+    ids = torch.from_numpy(rng.integers(0, n, c).astype(np.int32)).to(dev)
+    got = ops.pq_scan_gather(store, ids, table)
+    want = ref.pq_scan_gather_ref(store, ids, table)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
+        "pq_scan/pre_gather/M64: not bit-identical"
+    bms, by = bound(c * (4 + m + 4) + m * k * 4, c * m)
+    out["pq_scan/pre_gather/M64"] = timed(
+        lambda: ops.pq_scan_gather(store, ids, table),
+        lambda: ref.pq_scan_gather_ref(store, ids, table),
+        shape=[c, m, k, n], max_abs_err=float((got - want).abs().max()),
+        bound_ms=bms, bound_by=by)
+    return out
 
 
 def dsl_request(api, ds, i: int, kind: str, tag_field: str):
@@ -3025,6 +3125,90 @@ def mesh_phase(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 14: the range route at 768 dimensions, M = 64, two numeric fields
+# ---------------------------------------------------------------------------
+
+# the benchmark cell whose configuration and traffic phase 14 serves, the
+# corpus rows it keeps of them and the counted batches
+WIDE_CELL = "hbm-laion.range2-c64"
+WIDE_N = 50_000
+WIDE_REPEATS = 5
+
+
+def wide_phase(dev) -> dict:
+    """Phase 14: the LAION-shaped range deployment (``annbench``'s
+    ``WIDE_CELL``: d 768, PQ M 64, numeric fields width and similarity) cut
+    to ``WIDE_N`` records, built on the card through the harness's
+    ``build_index``, and the first 64 requests of its pool (range filters
+    over either field) through ``Index.search_batch``. Every returned id is
+    checked for exact membership, and each ``pre`` row calls
+    ``ops.pq_scan_gather`` once. Then the requests routed ``in`` run alone,
+    warmed once (hop graphs captured) and counted over ``WIDE_REPEATS``
+    batches: ``hop_fused`` launches one a hop step, each through
+    ``ops.hop_fused_gather``, and every hop step is a graph replay."""
+    import copy
+    import torch
+    from annbench import harness, loadgen
+    from annbench.corpus import make_corpus
+    from repro_torch.kernels import ops
+
+    files = harness.cell_files(harness.load_bench(ROOT), WIDE_CELL, ROOT)
+    config, traffic = copy.deepcopy(files["config"]), files["traffic"]
+    config["corpus"]["n"] = WIDE_N
+    before = ops.snapshot()
+    t0 = time.perf_counter()
+    corpus = make_corpus(config["corpus"], 0, traffic["pool"])
+    reqs = harness.make_requests(loadgen.make_pool(traffic, corpus, 0),
+                                 traffic)[:64]
+    index = harness.build_index(config, corpus, dev)
+    e = index.engine
+    out = {"cell": WIDE_CELL, "n": WIDE_N, "d": int(corpus.vectors.shape[1]),
+           "pq_m": int(e.codes.shape[1]), "fields": list(index.schema.nums),
+           "setup_s": time.perf_counter() - t0}
+    assert (out["d"], out["pq_m"], e.n_fields) == (768, 64, 2), out
+
+    with entry_calls("pq_scan_gather") as calls:
+        results, stats = index.search_batch(reqs, with_stats=True)
+    mech = stats.mechanism
+    out["mechanisms"] = {m: mech.count(m) for m in sorted(set(mech))}
+    assert calls["pq_scan_gather"] == mech.count("pre"), \
+        f"wide: {calls['pq_scan_gather']} pq_scan_gather calls"
+    out["checked_ids"] = _check_served("wide", index, reqs, results)
+
+    in_reqs = [r for r, m in zip(reqs, mech) if m == "in"]
+    assert in_reqs, "wide: no request took the in route"
+    index.search_batch(in_reqs)                 # warm-up: captures
+    steps = graphed = captures = 0
+    lat = []
+    mid = ops.snapshot()
+    with entry_calls("hop_fused_gather") as calls:
+        for _ in range(WIDE_REPEATS):
+            torch.cuda.synchronize(dev)
+            t1 = time.perf_counter()
+            results, stats = index.search_batch(in_reqs, with_stats=True)
+            lat.append(time.perf_counter() - t1)
+            assert set(stats.mechanism) == {"in"}, "wide: routes moved"
+            steps += stats.trace["hop_steps"]
+            graphed += stats.trace["hop_steps_graphed"]
+            captures += stats.trace["graph_captures"]
+    hop_launches = ops.snapshot()["hop_fused"] - mid["hop_fused"]
+    out["checked_ids"] += _check_served("wide/in", index, in_reqs, results)
+    assert captures == 0, f"wide: {captures} captures in the counted batches"
+    assert steps > 0 and graphed == (steps if dev.type == "cuda" else 0), \
+        f"wide: {graphed} of {steps} hop steps graphed"
+    assert hop_launches == calls["hop_fused_gather"] == steps, \
+        (f"wide: {hop_launches} hop_fused launches, "
+         f"{calls['hop_fused_gather']} gathered calls, {steps} hop steps")
+    out["in"] = {"queries": len(in_reqs), "batches": WIDE_REPEATS,
+                 "hop_steps_per_batch": steps / WIDE_REPEATS,
+                 "hop_fused_launches_per_hop_step": hop_launches / steps,
+                 "p50_batch_ms": sorted(lat)[len(lat) // 2] * 1e3}
+    after = ops.snapshot()
+    out["launches"] = {k: after[k] - before[k] for k in after}
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 KERNELS = {
     "hop_fused": ("hop_fused/gather",
@@ -3047,20 +3231,23 @@ KERNELS = {
 }
 # phase-2 rows reported beside a kernel's own: the slab entry of hop_fused
 # (the main path launches the gathered one) and the gathered one at phase
-# 10's shard widths, or_scatter's fresh-table rows (the seeding's) and its
+# 10's shard widths and at M = 64 with two bucket fields (phase 14's
+# widths), or_scatter's fresh-table rows (the seeding's) and its
 # out-of-place slab entry's two rows, the no-prune row of prune_scan and
 # its rows at phase 10's shard widths, pq_scan's cold-L2 scan and
 # pre-route rows (the slab entry and the gathered one the pre route
-# launches), approx_probe's cold-L2 and 100,000-row rows
+# launches) and its scan and gathered rows at M = 64, approx_probe's
+# cold-L2 and 100,000-row rows
 BESIDE = {"hop_fused": ("hop_fused", "hop_fused/gather/B32",
-                        "hop_fused/gather/B16"),
+                        "hop_fused/gather/B16", "hop_fused/gather/M64"),
           "or_scatter": ("or_scatter/visited_new", "or_scatter/rare_list_new",
                          "or_scatter/visited", "or_scatter/rare_list"),
           "prune_scan": ("prune_scan/C96/noprune",
                          "prune_scan/C96/a2=1.44/B512",
                          "prune_scan/C96/a2=1.44/B256"),
           "pq_scan": ("pq_scan/scan_cold", "pq_scan/pre",
-                      "pq_scan/pre_gather"),
+                      "pq_scan/pre_gather", "pq_scan/scan/M64",
+                      "pq_scan/pre_gather/M64"),
           "approx_probe": ("approx_probe/1M_cold", "approx_probe/100k")}
 # the phase whose run counts each kernel's launches
 LAUNCH_PHASE = {"hop_fused": "full", "or_scatter": "full",
@@ -3099,6 +3286,11 @@ def main(argv=None) -> int:
     small = card_vs_cpu_phase(dev)
     emit({"phase": "card_vs_cpu", "seconds": time.perf_counter() - t0,
           **small})
+
+    t0 = time.perf_counter()
+    wide = wide_phase(dev)
+    wide["seconds"] = time.perf_counter() - t0
+    emit({"phase": "wide", **wide})
 
     # halve N while the full-size phase would not fit in the time limit
     n, cuts = args.n, []
@@ -3174,7 +3366,7 @@ def main(argv=None) -> int:
                 "ops": opsr["launches"], "disk": disk["launches"],
                 "oracles": oracles["launches"], "shard": shard["launches"],
                 "lm": lmr["launches"], "train": trn["launches"],
-                "mesh": meshr["launches"]}
+                "mesh": meshr["launches"], "wide": wide["launches"]}
     rows = []
     for name, (key, source, replaces) in KERNELS.items():
         count = launches[LAUNCH_PHASE[name]][name]
@@ -3204,6 +3396,9 @@ def main(argv=None) -> int:
           "oracle_phase_s": oracles["seconds"],
           "shard_phase_s": shard["seconds"], "lm_phase_s": lmr["seconds"],
           "train_phase_s": trn["seconds"], "mesh_phase_s": meshr["seconds"],
+          "wide_phase_s": wide["seconds"],
+          "wide_hop_fused_launches_per_hop_step":
+              wide["in"]["hop_fused_launches_per_hop_step"],
           "shard_build_cut": shard["build"]["cut"],
           "oracle_pq_scan_launches_per_hop_step":
               oracles["distance_fn"]["pq_scan_launches_per_hop_step"],

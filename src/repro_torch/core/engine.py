@@ -128,6 +128,7 @@ class QueryStats:
                               # backend
     trace: dict | None = None  # the batch's tally (utils/trace.py): groups,
                                # hop steps, live and dispatched row-hops,
+                               # explored and falsely admitted records,
                                # graphed hop steps, graph captures, host
                                # seconds by span, device waits
 
@@ -834,7 +835,9 @@ class FilteredANNEngine:
         r = {f: trace.to_host(getattr(res, f)).numpy()
              for f in search.SearchResult._fields}
         # a row's hops count only the steps it was active in
-        trace.count(row_hops_live=int(r["hops"].sum()))
+        trace.count(row_hops_live=int(r["hops"].sum()),
+                    explored=int(r["explored"].sum()),
+                    fp_explored=int(r["fp_explored"].sum()))
         prefetch = np.array([plans[i].pages_prefetch for i in idxs]) \
             if mode == "spec_in" else np.zeros(len(idxs), np.int64)
         for j, i in enumerate(idxs):

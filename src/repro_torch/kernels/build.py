@@ -22,6 +22,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("hop_fused.cu", "or_scatter.cu", "prune_scan.cu", "pq_scan.cu",
            "approx_probe.cu", "l2_rerank.cu")
+# headers the sources include, hashed with them
+HEADERS = ("smem_optin.cuh",)
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -64,7 +66,7 @@ def nvcc_path() -> str:
 
 def source_hash() -> str:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())

@@ -22,18 +22,25 @@
 // K = 256) it moves ~2 MB (~0.6 us at 3.35 TB/s) and does a few integer ops
 // per byte, so it sits on the launch floor plus one chain of dependent
 // memory waits per candidate: id, then its rows, then the table lookups.
+// At M = 64 (768-d vectors at 12 dimensions a subspace) a query's table is
+// 64 KB: ~6.7 MB move (2.1 MB of code rows, 4.2 MB of tables; ~2 us), the
+// bulk copy of each block is four times longer before its first sum, and
+// each candidate makes 64 shared-memory lookups in place of 16.
 //
 // What the design does about it:
-//   * one block per query stages the (M, K) float32 table (16 KB) once, by
-//     one bulk asynchronous copy (cp.async.bulk) that thread 0 issues first
-//     and that completes on an mbarrier. The block's one barrier comes next,
-//     before any memory wait, and only publishes the mbarrier's
-//     initialisation;
+//   * one block per query stages the (M, K) float32 table (16 KB at M = 16,
+//     64 KB at M = 64) once, by one bulk asynchronous copy (cp.async.bulk)
+//     that thread 0 issues first and that completes on an mbarrier. The
+//     block's one barrier comes next, before any memory wait, and only
+//     publishes the mbarrier's initialisation. A table over the 48 KB that
+//     a launch may take by default needs the kernel's opt-in to the card's
+//     limit (227 KB a block on the H100), which each instantiation asks for
+//     once, at its first launch over 48 KB; three 64 KB blocks fit an SM;
 //   * meanwhile every thread issues its own candidate's loads: the id, then
-//     the code row as one 16-byte load (8 or 4 bytes for M = 8 or 4, bytes
-//     for other M), the bucket words, the bloom word and the rare-list
-//     word. It computes ok, which needs no table, and waits on the mbarrier
-//     only for the ADC sum;
+//     the code row as 16-byte loads (one, two or four for M = 16, 32, 64;
+//     8 or 4 bytes for M = 8 or 4; bytes for other M), the bucket words,
+//     the bloom word and the rare-list word. It computes ok, which needs no
+//     table, and waits on the mbarrier only for the ADC sum;
 //   * up to 512 threads, one candidate each at C = 512, keep 16 warps of
 //     loads in flight on each of the B SMs in use. Two blocks per query
 //     would fill more SMs but stage each table twice, and the time is a
@@ -45,6 +52,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "smem_optin.cuh"
 
 #define HF_MAX_THREADS 512
 #define HF_TABLE_OFFSET 16          // bytes of dynamic smem before the table
@@ -65,11 +74,22 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t phase) {
       "}" :: "r"(bar), "r"(phase) : "memory");
 }
 
-// A code row of M_T bytes as 32-bit words, by one vector load.
+// A code row of M_T bytes as 32-bit words, by one vector load (two or four
+// 16-byte loads for M_T = 32 or 64).
 template <int M_T>
 __device__ __forceinline__ void load_row(const uint8_t* p,
                                          uint32_t (&w)[M_T / 4]) {
-  if constexpr (M_T == 16) {
+  if constexpr (M_T == 32 || M_T == 64) {
+    const uint4* p4 = reinterpret_cast<const uint4*>(p);
+#pragma unroll
+    for (int i = 0; i < M_T / 16; ++i) {
+      const uint4 v = __ldg(p4 + i);
+      w[4 * i] = v.x;
+      w[4 * i + 1] = v.y;
+      w[4 * i + 2] = v.z;
+      w[4 * i + 3] = v.w;
+    }
+  } else if constexpr (M_T == 16) {
     const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
     w[0] = v.x;
     w[1] = v.y;
@@ -85,7 +105,8 @@ __device__ __forceinline__ void load_row(const uint8_t* p,
 }
 
 // GATHER: rows come from the stores through ids (else from the slab).
-// M_T: M known at compile time (4, 8, 16: vector loads), or 0 (bytes).
+// M_T: M known at compile time (4, 8, 16, 32, 64: vector loads), or 0
+// (bytes).
 template <bool GATHER, int M_T>
 __global__ void __launch_bounds__(HF_MAX_THREADS)
 hop_fused_kernel(const int32_t* __restrict__ ids, long long N,
@@ -217,6 +238,15 @@ hop_fused_kernel(const int32_t* __restrict__ ids, long long N,
   if (threadIdx.x == 0 && !waited) mbar_wait(bar, 0);
 }
 
+// The most dynamic shared memory a block of hop_fused_kernel<GATHER, M_T>
+// may take, its opt-in asked for once per instantiation and process.
+template <bool GATHER, int M_T>
+static size_t hf_smem_limit() {
+  static const size_t limit =
+      smem_optin_limit((const void*)hop_fused_kernel<GATHER, M_T>);
+  return limit;
+}
+
 template <bool GATHER>
 static int hop_fused_dispatch(const void* ids, long long N, const void* codes,
                               const void* blooms, const void* buckets,
@@ -227,13 +257,14 @@ static int hop_fused_dispatch(const void* ids, long long N, const void* codes,
                               void* key, void* ok, int B, int C, int M, int K,
                               int F, int QL, int NR, void* stream) {
   const size_t smem = HF_TABLE_OFFSET + (size_t)M * K * sizeof(float);
-  if (smem > 48 * 1024 || (M * K) % 4 != 0)
-    return (int)cudaErrorInvalidValue;
+  if ((M * K) % 4 != 0) return (int)cudaErrorInvalidValue;
   if (B == 0 || C == 0) return (int)cudaSuccess;
   int threads = ((C + 31) / 32) * 32;
   if (threads > HF_MAX_THREADS) threads = HF_MAX_THREADS;
   cudaStream_t st = (cudaStream_t)stream;
 #define HF_LAUNCH(MT)                                                       \
+  if (smem > SMEM_DEFAULT_BYTES && smem > hf_smem_limit<GATHER, MT>())      \
+    return (int)cudaErrorInvalidValue;                                      \
   hop_fused_kernel<GATHER, MT><<<B, threads, smem, st>>>(                   \
       (const int32_t*)ids, N, (const uint8_t*)codes,                        \
       (const int32_t*)blooms, (const int32_t*)buckets,                      \
@@ -246,6 +277,8 @@ static int hop_fused_dispatch(const void* ids, long long N, const void* codes,
     case 4: HF_LAUNCH(4); break;
     case 8: HF_LAUNCH(8); break;
     case 16: HF_LAUNCH(16); break;
+    case 32: HF_LAUNCH(32); break;
+    case 64: HF_LAUNCH(64); break;
     default: HF_LAUNCH(0); break;
   }
 #undef HF_LAUNCH

@@ -21,14 +21,20 @@
 // lookups of a row are random 4-byte reads; with entry c of every subtable
 // in bank c mod 32, 32 random codes put ~3.5 reads on a warp's fullest
 // bank. Below ~100,000 rows: the latency of staging the table before the
-// first lookup.
+// first lookup. At M = 64 (768-d vectors at 12 dimensions a subspace) a row
+// is 64 code bytes and the table 64 KB: four times the bytes a row and the
+// lookups, and a table that only three blocks of an SM can hold at once.
 //
-// The design: blocks of 256 threads, at most 8 on each SM, stage the
-// (M, K) table in 16-byte copies (one round trip to L2 for 16 KB, where
-// 4-byte copies took 5.8 us at 50,000 rows against 3.8) and take a row a
-// thread in a grid-stride loop, reading it in 16-byte loads where the row
-// is a whole number of 16-byte words on an aligned base (M = 16 uint8: one
-// load), else a code at a time.
+// The design: blocks of 256 threads, at most 8 on each SM and no more than
+// the SM's shared memory holds with each block's table (8 up to 16 KB, 3 at
+// 64 KB), stage the (M, K) table in 16-byte copies (one round trip to L2
+// for 16 KB, where 4-byte copies took 5.8 us at 50,000 rows against 3.8)
+// and take a row a thread in a grid-stride loop, reading it in 16-byte
+// loads where the row is a whole number of 16-byte words on an aligned base
+// (M = 16 uint8: one load; M = 64: four), else a code at a time. A table
+// over the 48 KB a launch may take by default needs the kernel's opt-in to
+// the card's limit (227 KB a block on the H100), which each instantiation
+// asks for once, at its first launch over 48 KB.
 //
 // Measured with tools/ab_full_phase.py --phase kernels on NVIDIA H100 80GB
 // HBM3, 700.00 W (PERF.md, runs 15b-15e), and dropped:
@@ -45,9 +51,11 @@
 //   G = M = 16 and G = 8 took 14.8 and 12.9 us hot at 1M.
 //
 // nvcc -Xptxas -v (sm_90a): 31-32 registers, no spills, M*K*4 bytes of
-// dynamic shared memory (16 KB at M = 16, K = 256).
+// dynamic shared memory (16 KB at M = 16, 64 KB at M = 64, K = 256).
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "smem_optin.cuh"
 
 #define PQ_THREADS 256
 #define PQ_BLOCKS_PER_SM 8
@@ -121,6 +129,47 @@ __global__ void pq_scan_kernel(const CodeT* __restrict__ codes,
   }
 }
 
+// The most dynamic shared memory a block of pq_scan_kernel<CodeT, GATHER>
+// may take, its opt-in asked for once per instantiation and process.
+template <typename CodeT, bool GATHER>
+static size_t pq_smem_limit() {
+  static const size_t limit =
+      smem_optin_limit((const void*)pq_scan_kernel<CodeT, GATHER>);
+  return limit;
+}
+
+// The SM's shared memory and the per-block reserve, in bytes, read once per
+// process; 0 where the card's attributes cannot be read.
+struct PqSmemSizes {
+  long long per_sm, reserved;
+};
+
+static PqSmemSizes pq_smem_sizes(int dev) {
+  static const PqSmemSizes sizes = [dev] {
+    int per_sm = 0, reserved = 0;
+    if (cudaDeviceGetAttribute(&per_sm,
+                               cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+                               dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&reserved,
+                               cudaDevAttrReservedSharedMemoryPerBlock,
+                               dev) != cudaSuccess)
+      return PqSmemSizes{0, 0};
+    return PqSmemSizes{per_sm, reserved};
+  }();
+  return sizes;
+}
+
+// Blocks of `smem` bytes of dynamic shared memory that one SM holds at
+// once, at most PQ_BLOCKS_PER_SM; 0 where the card's attributes cannot be
+// read.
+static int pq_blocks_per_sm(int dev, size_t smem) {
+  const PqSmemSizes sz = pq_smem_sizes(dev);
+  if (sz.per_sm == 0) return 0;
+  const long long fit = sz.per_sm / ((long long)smem + sz.reserved);
+  if (fit < 1) return 1;
+  return fit > PQ_BLOCKS_PER_SM ? PQ_BLOCKS_PER_SM : (int)fit;
+}
+
 template <typename CodeT, bool GATHER>
 static int pq_scan_launch(const void* codes, const void* ids,
                           const void* table, void* out, long long N,
@@ -135,10 +184,14 @@ static int pq_scan_launch(const void* codes, const void* ids,
   cudaStream_t s = (cudaStream_t)stream;
   const bool wide = ((size_t)M * sizeof(CodeT)) % 16 == 0 &&
                     ((uintptr_t)codes) % 16 == 0;
+  const size_t smem = (size_t)M * K * sizeof(float);
+  if (smem > SMEM_DEFAULT_BYTES && smem > pq_smem_limit<CodeT, GATHER>())
+    return (int)cudaErrorInvalidValue;
+  const int per_sm = pq_blocks_per_sm(dev, smem);
+  if (per_sm == 0) return (int)cudaErrorInvalidValue;
   long long blocks = (N + PQ_THREADS - 1) / PQ_THREADS;
-  const long long cap = (long long)sms * PQ_BLOCKS_PER_SM;
+  const long long cap = (long long)sms * per_sm;
   if (blocks > cap) blocks = cap;
-  size_t smem = (size_t)M * K * sizeof(float);
   pq_scan_kernel<CodeT, GATHER><<<(unsigned)blocks, PQ_THREADS, smem, s>>>(
       (const CodeT*)codes, (const int32_t*)ids, (const float*)table,
       (float*)out, N, rows, M, K, wide,

@@ -24,6 +24,16 @@ LAUNCHES = {"hop_fused": 0, "or_scatter": 0, "prune_scan": 0, "pq_scan": 0,
 
 _count_lock = threading.Lock()
 
+# Dynamic shared memory a block may take on the H100 once its kernel opts in:
+# the ceiling of the lookup tables that hop_fused and pq_scan stage, which
+# opt in above 48 KB. It mirrors cudaDevAttrMaxSharedMemoryPerBlockOptin
+# (227 KB there), which the kernels read from the card (csrc/smem_optin.cuh);
+# here it only refuses a too-wide table with a ValueError before a launch.
+SMEM_OPTIN_BYTES = 232_448
+HF_TABLE_OFFSET = 16      # bytes hop_fused puts before its table
+# M -> the alignment of hop_fused's vector loads of a code row of M bytes
+_ROW_ALIGN = {4: 4, 8: 8, 16: 16, 32: 16, 64: 16}
+
 
 def reset_launches() -> None:
     with _count_lock:
@@ -84,18 +94,20 @@ def _check_hop_params(b, m, table, scalars, or_masks, range_field,
     for name, t in (("range_field", range_field), ("bucket_lo", bucket_lo),
                     ("bucket_hi", bucket_hi)):
         _check(name, t, torch.int32, (b, nr), dev)
-    if m * k * 4 + 16 > 48 * 1024:
-        raise ValueError(f"hop_fused: table of {m}x{k} exceeds 48 KB of "
-                         "shared memory")
+    if HF_TABLE_OFFSET + m * k * 4 > SMEM_OPTIN_BYTES:
+        raise ValueError(f"hop_fused: table of {m}x{k} exceeds the "
+                         f"{SMEM_OPTIN_BYTES - HF_TABLE_OFFSET} bytes of "
+                         "shared memory a block stages")
     if (m * k) % 4 or table.data_ptr() % 16:
         raise ValueError("hop_fused: the table must start on 16 bytes and "
                          "hold a multiple of 4 floats per query")
 
 
 def _check_code_rows(codes, m) -> None:
-    """Rows of M = 4, 8 or 16 codes are read as one vector load each, which
-    needs the rows' start aligned to the load's width."""
-    width = m if m in (4, 8, 16) else 1
+    """Rows of M = 4, 8, 16, 32 or 64 codes are read by vector loads (one,
+    or two or four of 16 bytes), which need the rows' start aligned to the
+    load's width."""
+    width = _ROW_ALIGN.get(m, 1)
     if codes.data_ptr() % width:
         raise ValueError(f"hop_fused: code rows of {m} bytes must start on "
                          f"{width} bytes")
@@ -263,9 +275,10 @@ def _check_pq(codes, table, dev) -> str:
                         "int32")
     _check("codes", codes, codes.dtype, (n, m), dev)
     _check("table", table, torch.float32, (m, k), dev)
-    if m * k * 4 > 48 * 1024:
-        raise ValueError(f"pq_scan: table of {m}x{k} exceeds 48 KB of "
-                         "shared memory")
+    if m * k * 4 > SMEM_OPTIN_BYTES:
+        raise ValueError(f"pq_scan: table of {m}x{k} exceeds the "
+                         f"{SMEM_OPTIN_BYTES} bytes of shared memory a "
+                         "block stages")
     return "u8" if codes.dtype == torch.uint8 else "i32"
 
 

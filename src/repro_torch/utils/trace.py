@@ -9,8 +9,11 @@ profiler it calls no torch operator.
 
 :func:`batch` opens a tally for one engine call on the calling thread (the
 server flushes on its own worker): exact counters (``groups``,
-``hop_steps``, ``row_hops_live``, ``row_hops_dispatched``, and of the hop
-loop's CUDA graphs ``hop_steps_graphed``, the hop steps run by replay, and
+``hop_steps``, ``row_hops_live``, ``row_hops_dispatched``, ``explored``
+and ``fp_explored`` (the records the ``in`` and ``post`` rows explored, and
+those of them that exact verification found invalid: the false positives
+of the approximate membership test), and of the hop loop's CUDA graphs
+``hop_steps_graphed``, the hop steps run by replay, and
 ``graph_captures``), the self seconds of each span name (``host_s``) and
 the seconds the host blocked on the device (``device_wait_s``).
 :func:`to_host` and :func:`sync` are the served path's blocking readbacks,
@@ -28,7 +31,7 @@ import torch.autograd.profiler as _autograd_profiler
 
 PREFIX = "repro."
 COUNTERS = ("groups", "hop_steps", "row_hops_live", "row_hops_dispatched",
-            "hop_steps_graphed", "graph_captures")
+            "explored", "fp_explored", "hop_steps_graphed", "graph_captures")
 
 
 class _Local(threading.local):

@@ -34,21 +34,23 @@ def _same(got, want):
 
 
 @pytest.mark.parametrize("b,c", [(1, 7), (3, 33), (64, 512)])
-@pytest.mark.parametrize("m", [16, 8, 4, 32, 5])
+@pytest.mark.parametrize("m", [16, 8, 4, 32, 64, 48, 5])
 def test_hop_fused_cuda_matches_plain(cuda, b, c, m):
-    """The slab entry on the vector-load paths (M = 4, 8, 16, 32) and the
-    byte path (M = 5)."""
+    """The slab entry on the vector-load paths (M = 4, 8, 16, 32, 64) and
+    the byte path (M = 48, 5); tables of 48 KB and more (M = 48, 64) need
+    the kernel's opt-in to more shared memory."""
     rng = np.random.default_rng(b + c + m)
     args = [torch.from_numpy(a) for a in hop_inputs(rng, b, c, m=m)]
     _same(tops.hop_fused(*(a.to(cuda) for a in args)), tops.hop_fused(*args))
 
 
 @pytest.mark.parametrize("b,c", [(1, 7), (3, 33), (64, 512), (2, 1100)])
-@pytest.mark.parametrize("m", [16, 8, 5])
+@pytest.mark.parametrize("m", [16, 8, 5, 32, 48, 64])
 @pytest.mark.parametrize("merged_mode", [1, 2])
 def test_hop_fused_gather_cuda_matches_plain(cuda, b, c, m, merged_mode):
     """The gathered entry against its plain version and against the slab
-    entry on the slab it gathers (C = 1100 loops over the block)."""
+    entry on the slab it gathers (C = 1100 loops over the block), on the
+    vector-load paths (M = 8, 16, 32, 64) and the byte path (M = 5, 48)."""
     rng = np.random.default_rng(b * c + m)
     args = gather_inputs(rng, b, c, 5000, m=m, merged_mode=merged_mode)
     targs = [torch.from_numpy(a) for a in args]
@@ -92,6 +94,26 @@ def test_hop_fused_cuda_refuses_misaligned(cuda):
     codes = torch.zeros(100 * 8 + 4, dtype=torch.uint8, device=cuda)
     with pytest.raises(ValueError, match="must start on 8 bytes"):
         tops.hop_fused_gather(codes[4:].view(100, 8), *gargs[1:])
+
+
+def test_hop_fused_cuda_refuses_tables_past_the_opt_in_limit(cuda):
+    """A table past the card's opt-in shared memory (less the 16 bytes
+    before it) is refused before any launch, and M = 64 rows off 16 bytes
+    are refused too."""
+    rng = np.random.default_rng(6)
+    tops.reset_launches()
+    args = [torch.from_numpy(a).to(cuda)
+            for a in hop_inputs(rng, 2, 8, m=64, k=1024)]
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        tops.hop_fused(*args)
+    gargs = [torch.from_numpy(a).to(cuda)
+             for a in gather_inputs(rng, 2, 8, 100, m=64)]
+    codes = torch.zeros(100 * 64 + 8, dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="must start on 16 bytes"):
+        tops.hop_fused_gather(codes[8:].view(100, 64), *gargs[1:])
+    assert tops.LAUNCHES["hop_fused"] == 0
+    tops.hop_fused_gather(*gargs)
+    assert tops.LAUNCHES["hop_fused"] == 1
 
 
 def test_hop_fused_cuda_out_of_range_field(cuda):
@@ -256,11 +278,12 @@ def _bits_equal(got, want):
 
 
 @pytest.mark.parametrize("n", [1, 31, 33, "wave-1", "wave+1", 1_000_000])
-@pytest.mark.parametrize("m", [4, 8, 16, 32, 5])
+@pytest.mark.parametrize("m", [4, 8, 16, 32, 64, 5])
 @pytest.mark.parametrize("k", [16, 256])
 @pytest.mark.parametrize("dtype", [np.uint8, np.int32])
 def test_pq_scan_cuda_matches_plain(cuda, n, m, k, dtype):
-    """Bit-identical to the plain version at M = 4, 8, 16, 32 and 5, on
+    """Bit-identical to the plain version at M = 4, 8, 16, 32, 64 and 5 (a
+    64 KB table at M = 64, K = 256, over the default 48 KB), on
     aligned rows (16-byte loads where a row is a whole number of them) and
     on a view one element off 16 bytes (a code at a time), below and past
     one wave of the grid, and on codes out of range."""
@@ -279,7 +302,7 @@ def test_pq_scan_cuda_matches_plain(cuda, n, m, k, dtype):
 
 
 @pytest.mark.parametrize("c", [1, 33, 50_000, "wave+1", 1_000_000])
-@pytest.mark.parametrize("m", [16, 8, 32, 5])
+@pytest.mark.parametrize("m", [16, 8, 32, 64, 5])
 @pytest.mark.parametrize("dtype", [np.uint8, np.int32])
 def test_pq_scan_gather_cuda_matches_plain(cuda, c, m, dtype):
     """The gathered entry against its plain version and against the slab
@@ -372,10 +395,16 @@ def test_cuda_wrappers_count_and_check(cuda):
                         torch.zeros((16, 256), dtype=torch.float32,
                                     device=cuda))
     assert tops.LAUNCHES["pq_scan"] == 2
-    with pytest.raises(ValueError, match="48 KB"):
+    # a 64 KB table stages past the default 48 KB; one past the card's
+    # opt-in limit is refused before any launch
+    tops.pq_scan(torch.zeros((3, 64), dtype=torch.uint8, device=cuda),
+                 torch.zeros((64, 256), dtype=torch.float32, device=cuda))
+    assert tops.LAUNCHES["pq_scan"] == 3
+    with pytest.raises(ValueError, match="bytes of shared memory"):
         tops.pq_scan(torch.zeros((3, 64), dtype=torch.uint8, device=cuda),
-                     torch.zeros((64, 256), dtype=torch.float32,
+                     torch.zeros((64, 1024), dtype=torch.float32,
                                  device=cuda))
+    assert tops.LAUNCHES["pq_scan"] == 3
     with pytest.raises(TypeError):
         tops.or_scatter(words.long(), torch.zeros((2, 3), dtype=torch.int32,
                                                   device=cuda))

@@ -160,7 +160,8 @@ def test_tally_carries_the_graph_counters(small):
     ds, e, _ = small
     assert set(trace.new_tally()) == {
         "groups", "hop_steps", "row_hops_live", "row_hops_dispatched",
-        "hop_steps_graphed", "graph_captures", "host_s", "device_wait_s"}
+        "explored", "fp_explored", "hop_steps_graphed", "graph_captures",
+        "host_s", "device_wait_s"}
     sels = make_selectors(ds, e, "label")
     _, _, stats = e.execute(ds.queries, sels,
                             [teng.SearchConfig(policy="post", hop_chunk=4)]

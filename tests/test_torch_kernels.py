@@ -108,6 +108,53 @@ def test_hop_fused_gather_out_of_range_ids():
         tops.hop_fused_gather(*args[:3], args[3][:, :1], *args[4:])
 
 
+@pytest.mark.parametrize("m", [32, 48, 64])
+def test_hop_fused_wide_tables_match_repro(m):
+    """Both entries take the wide tables of 768-d vectors (M = 64, a 64 KB
+    table a query) and those either side of it, bit for bit against
+    ``repro``'s Pallas kernel (interpret mode) on the same slab."""
+    rng = np.random.default_rng(m)
+    args = gather_inputs(rng, 3, 40, 300, m=m)
+    key_g, ok_g = tops.hop_fused_gather(*(torch.from_numpy(a)
+                                          for a in args))
+    slab = gathered_slab(args)
+    key_s, ok_s = tops.hop_fused(*(torch.from_numpy(a) for a in slab))
+    key_i, ok_i = jops.hop_fused_interpret(*[jnp.asarray(a) for a in slab])
+    for key, ok in ((key_g, ok_g), (key_s, ok_s)):
+        np.testing.assert_array_equal(ok.numpy(), np.asarray(ok_i))
+        np.testing.assert_array_equal(key.numpy().view(np.int32),
+                                      np.asarray(key_i).view(np.int32))
+
+
+def test_tables_past_the_opt_in_limit_are_refused():
+    """The card's entries stage a query's (M, K) table in shared memory up
+    to the opt-in limit: M = 64 at K = 256 passes their checks, a table
+    past the limit raises ValueError (checked here on CPU tensors, as the
+    CUDA path checks them before a launch)."""
+    cpu = torch.device("cpu")
+    limit = tops.SMEM_OPTIN_BYTES
+    for m, k, fits in ((64, 256, True), (56, 1024, True),
+                       (57, 1024, False), (64, 1024, False)):
+        hop_fits = tops.HF_TABLE_OFFSET + m * k * 4 <= limit
+        pq_fits = m * k * 4 <= limit
+        assert hop_fits == pq_fits == fits, (m, k)
+        b, nr = 2, 4
+        params = (torch.zeros((b, m, k)),
+                  torch.zeros((b, 4), dtype=torch.int32),
+                  torch.zeros((b, 8), dtype=torch.int32),
+                  *(torch.zeros((b, nr), dtype=torch.int32),) * 3)
+        codes = torch.zeros((5, m), dtype=torch.uint8)
+        table = torch.zeros((m, k))
+        if fits:
+            tops._check_hop_params(b, m, *params, cpu)
+            assert tops._check_pq(codes, table, cpu) == "u8"
+            continue
+        with pytest.raises(ValueError, match="bytes of shared memory"):
+            tops._check_hop_params(b, m, *params, cpu)
+        with pytest.raises(ValueError, match="bytes of shared memory"):
+            tops._check_pq(codes, table, cpu)
+
+
 def test_adc_slab_matches_repro():
     rng = np.random.default_rng(5)
     for m in (8, 16):

@@ -123,6 +123,31 @@ def test_hop_counters_match_the_chunk_log(built, async_readback):
     assert t["groups"] == 0        # no engine around the search
 
 
+def test_explored_tallies_equal_the_query_stats(built):
+    """``explored`` and ``fp_explored`` are the batch's ``QueryStats``
+    sums: the records its ``in`` and ``post`` rows explored and those that
+    exact verification found invalid (the ``pre`` route counts none); the
+    range and hybrid rows let some invalid record in."""
+    ds, e = built
+    queries, sels, scfgs = _batch(ds, e)
+    _, _, stats = e.execute(queries, sels, scfgs)
+    t = stats.trace
+    graph = np.array([m != "pre" for m in stats.mechanism])
+    assert graph.any() and not graph.all()
+    assert t["explored"] == int(stats.explored.sum()) \
+        == int(stats.explored[graph].sum()) > 0
+    assert t["fp_explored"] == int(stats.fp_explored.sum()) \
+        == int(stats.fp_explored[graph].sum())
+    assert 0 < t["fp_explored"] < t["explored"]
+    # the benchmark's reader of the two; a tally without them (a program
+    # that does not count them) gives nothing to read
+    from annbench import harness
+    read = harness.metric_reader("search.fp_explored_share")
+    assert read(_obs([t])) == t["fp_explored"] / t["explored"]
+    old = {k: v for k, v in t.items() if k not in ("explored", "fp_explored")}
+    assert read(_obs([old])) is None
+
+
 def test_profiler_changes_no_answer(built):
     """ids, distances and every ``QueryStats`` counter are the same with a
     profiler recording as without one."""
@@ -223,6 +248,7 @@ def _obs(tallies, disk=None):
 READER_CASES = {
     "search.hop_steps_per_batch": 300.0,
     "search.live_row_share": 0.25,
+    "search.fp_explored_share": 0.15,
     "search.host_us_per_hop_step": 2000.0,
     "engine.groups_per_batch": 3.0,
     "engine.device_wait_share": 0.1,
@@ -239,11 +265,13 @@ def test_readers_on_a_hand_built_obs(name):
     read = harness.metric_reader(name)
     t1 = dict(trace.new_tally(), groups=2, hop_steps=256,
               row_hops_live=1000, row_hops_dispatched=6000,
+              explored=400, fp_explored=100,
               device_wait_s=0.05,
               host_s={"search.hops": 0.2, "hop.rerank": 0.3,
                       "hop.expand": 0.1, "disk.fetch": 0.4})
     t2 = dict(trace.new_tally(), groups=4, hop_steps=344,
               row_hops_live=2000, row_hops_dispatched=6000,
+              explored=600, fp_explored=50,
               device_wait_s=0.15,
               host_s={"hop.select": 0.35, "hop.settle": 0.25,
                       "engine.execute": 0.4})
