@@ -90,7 +90,9 @@ Phases, each printing one JSON line:
    phase-7 label batch under the fault plan, and 8 scan-rung requests
    through ``approx_scan_batch``. Ids, distances, routes and integer
    counters must equal the device backend's, and each run must launch the
-   same kernels through the same ``ops`` entries. Per run: pages/query
+   same kernels through the same ``ops`` entries; every hop step is a
+   graph replay with the disk fetch between the graphs, but those of the
+   strict_in and fault-plan runs (eager). Per run: pages/query
    modeled and measured, the page cache's hit rate, read-ahead pages,
    attribute probes, gated skips and reads, p50/p95 µs per page; the
    speculative run again on a fresh store after ``fsync`` and
@@ -1639,6 +1641,10 @@ DISK_RUNS = (("label/post", "post"), ("label/strict_in", "strict_in"),
              ("label/speculative", "speculative"),
              ("label/strict_pre", "strict_pre"))
 DISK_ENTRIES = SEARCH_ENTRIES + ("hop_fused_gather", "hop_fused")
+# the disk runs whose hop steps run eagerly on the disk tier: strict_in's
+# attribute probe is a second host read inside the hop step, and a fault
+# plan keeps every hop eager; the others replay every hop step
+DISK_EAGER = ("label/strict_in", "label/faults rate=0.1,seed=7")
 
 
 def _counted(fn):
@@ -1650,6 +1656,28 @@ def _counted(fn):
         res = fn()
     after = ops.snapshot()
     return res, {k: after[k] - before[k] for k in after}, dict(calls)
+
+
+@contextlib.contextmanager
+def capture_calls(calls: dict):
+    """The ``ops`` entry calls counted in ``calls`` (``entry_calls``'s)
+    that hop-graph captures made while open: their warm-up hops."""
+    from repro_torch.core import search
+    made = collections.Counter()
+    capture = search._HopGraph.capture
+
+    def counted(self, *args, **kwargs):
+        before = dict(calls)
+        try:
+            return capture(self, *args, **kwargs)
+        finally:
+            made.update({k: calls[k] - before[k] for k in calls})
+
+    search._HopGraph.capture = counted
+    try:
+        yield made
+    finally:
+        search._HopGraph.capture = capture
 
 
 def _meminfo() -> dict:
@@ -1704,9 +1732,13 @@ def disk_phase(index, ds, dev) -> dict:
     ``approx_scan_batch``. Every answer must equal the device backend's
     (ids, distances, routes and integer counters, the ladder's included),
     and every run must launch the same kernels through the same ``ops``
-    entries as on the device backend. The speculative run is repeated on a
-    fresh store after the slab file is written back and dropped from the
-    OS page cache (``fsync``, then ``posix_fadvise(DONTNEED)``). Launch counts of the disk runs are
+    entries as on the device backend; a disk run that captured hop graphs
+    is made again before it is compared (a capture's warm-up hop launches
+    kernels of its own). On disk every hop step is replayed, but those of
+    the ``DISK_EAGER`` runs. The speculative run is repeated on a fresh
+    store (which captures its graphs anew) after the slab file is written
+    back and dropped from the OS page cache (``fsync``, then
+    ``posix_fadvise(DONTNEED)``). Launch counts of the disk runs are
     returned under ``launches``, entry calls under ``entry_calls``; the
     slab directory is deleted at the end."""
     import os
@@ -1773,12 +1805,22 @@ def disk_phase(index, ds, dev) -> dict:
         totals = collections.Counter()
         lines = {}
         for label, fn in runs.items():
-            store.reset_counters()
-            torch.cuda.synchronize(dev)
-            t0 = time.perf_counter()
-            res, launches, calls = _counted(fn)
-            torch.cuda.synchronize(dev)
-            secs = time.perf_counter() - t0
+            for _ in range(2):
+                store.reset_counters()
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                res, launches, calls = _counted(fn)
+                torch.cuda.synchronize(dev)
+                secs = time.perf_counter() - t0
+                captures = res[2].trace["graph_captures"]
+                if not captures:
+                    break
+            assert not captures, f"{label}: captured again when repeated"
+            steps = res[2].trace["hop_steps"]
+            graphed = res[2].trace["hop_steps_graphed"]
+            eager = label in DISK_EAGER or torch.device(dev).type != "cuda"
+            assert graphed == (0 if eager else steps), \
+                f"{label}: {graphed} of {steps} hop steps graphed on disk"
             w_res, w_launches, w_calls, w_secs = want[label]
             compare_results(f"disk vs device: {label}", res, w_res,
                             exact=True)
@@ -1791,6 +1833,7 @@ def disk_phase(index, ds, dev) -> dict:
             n = len(res[0])
             lines[label] = {**_disk_line(store, res[2], n, secs),
                             "device_seconds": w_secs,
+                            "hop_steps": steps, "hop_steps_graphed": graphed,
                             "launches": launches, "entry_calls": calls}
             emit({"phase": "disk_run", "run": label, "pass": "after_write",
                   **lines[label]})
@@ -1828,12 +1871,17 @@ def disk_phase(index, ds, dev) -> dict:
         e.attach_disk_store(DiskRecordStore(str(path)))
         label = "label/speculative"
         t0 = time.perf_counter()
-        res, launches, calls = _counted(runs[label])
+        # the fresh store's graphs are captured in this run: the entry
+        # calls of the captures' warm-up hops are told apart
+        with entry_calls(*DISK_ENTRIES) as calls, \
+                capture_calls(calls) as warm:
+            res = runs[label]()
         torch.cuda.synchronize(dev)
         secs = time.perf_counter() - t0
         compare_results(f"disk vs device: {label} (cold)", res,
                         want[label][0], exact=True)
-        assert calls == want[label][2]
+        assert collections.Counter(calls) - warm == collections.Counter(
+            want[label][2]), (calls, warm)
         cold = _disk_line(e.disk_store, res[2], len(res[0]), secs)
         emit({"phase": "disk_run", "run": label, "pass": "after_fadvise",
               **cold})

@@ -46,8 +46,9 @@ class RecordStore(NamedTuple):
     # record's candidate list [neighbors ++ dense_neighbors] (-1 pads False);
     # query-independent, so derived once per build (candidate_first_mask)
     cand_first: torch.Tensor | None = None
-    # the hop loop's CUDA graphs over these tensors; None (a shard, a disk
-    # tier's stand-in, a dry run) runs every hop eagerly
+    # the hop loop's CUDA graphs over these tensors (over a disk tier's
+    # stand-in, with the fetch between them); None (a shard, a dry run)
+    # runs every hop eagerly
     hop_graphs: HopGraphs | None = None
 
     @property

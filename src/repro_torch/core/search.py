@@ -34,10 +34,11 @@ are gathered before the next hop runs). Every tie is broken by lower index
 through stable sorts, as ``jax.lax.top_k`` and ``jnp.argsort`` break them,
 so the port follows the JAX package's trajectory query for query.
 
-Execution: :func:`run_hops` advances a batch ``n_hops`` hops with no host
-synchronisation inside on the device backend (rows that settled are exact
-fixed points of the hop step, so running a whole chunk changes nothing for
-them), where it replays a hop captured as CUDA graphs (:class:`_HopGraph`);
+Execution: :func:`run_hops` advances a batch ``n_hops`` hops (rows that
+settled are exact fixed points of the hop step, so running a whole chunk
+changes nothing for them) by replaying a hop captured as CUDA graphs
+(:class:`_HopGraph`): with no host synchronisation inside on the device
+backend, with the frontier's fetch between the graphs on the disk tier;
 every driver takes a ``fetch_fn``, the disk tier's included
 (``storage/disk.py``: one host copy of the ids a hop);
 :func:`filtered_search_pipelined` reads the active mask back one chunk late
@@ -455,9 +456,9 @@ def _hop_step(store, codes, mem, params, ctx, mc, st, rec,
                 # NaN) fail exact membership exactly where its real
                 # attributes would
                 gate = is_member_approx(qf, safe_cand, mem)
-                nrec = fetch_fn(store, safe_cand.reshape(-1),
-                                need=fresh.reshape(-1), gate=gate.reshape(-1),
-                                attrs_only=True)
+                nrec = fetch_fn(store, torch.stack(
+                    [safe_cand.reshape(-1), fresh.reshape(-1).int(),
+                     gate.reshape(-1).int()]), attrs_only=True)
             else:
                 nrec = fetch_fn(store, safe_cand.reshape(-1))
             n_rl = nrec["rec_labels"].reshape(B, W * C, -1)
@@ -531,18 +532,25 @@ def _hop_step(store, codes, mem, params, ctx, mc, st, rec,
 def _issue(store: RecordStore, st: HopState, params: SearchParams,
            fetch_fn=local_fetch) -> dict:
     """Fetch the frontier's records. A ``fetch_fn`` marked ``wants_ctx``
-    (the disk tier's, ``storage/disk.py``) also receives each row's hop
-    counter as it stands at issue (its fault draws key on the same
-    (id, hop) pairs as the hop step's ladder), the rows' liveness (dead
-    rows read nothing) and the record flavour (dense in spec_in)."""
+    (the disk tier's, ``storage/disk.py``) reads on the host: it receives
+    the ids packed over each row's hop counter as it stands at issue (its
+    fault draws key on the same (id, hop) pairs as the hop step's ladder)
+    and the rows' liveness (dead rows read nothing), one (3, B·W) int32
+    tensor that it copies to the host at once, and the record flavour
+    (dense in spec_in). While this thread captures a hop the packing is
+    captured and the call is left out of the graph
+    (:meth:`_HopGraph.hole`)."""
     ids = torch.where(st.cur_live, st.cur_ids, 0).reshape(-1)
-    if getattr(fetch_fn, "wants_ctx", False):
-        return fetch_fn(store, ids,
-                        hops=st.counters[:, 3].repeat_interleave(
-                            params.beam_width),
-                        live=st.cur_live.reshape(-1),
-                        dense=params.mode == "spec_in")
-    return fetch_fn(store, ids)
+    if not getattr(fetch_fn, "wants_ctx", False):
+        return fetch_fn(store, ids)
+    W = params.beam_width
+    packed = torch.stack([ids, st.counters[:, 3, None].expand(-1, W)
+                          .reshape(-1), st.cur_live.reshape(-1).int()])
+    dense = params.mode == "spec_in"
+    graph = getattr(_capture, "graph", None)
+    if graph is not None:
+        return graph.hole("fetch", (fetch_fn, store, packed, dense))
+    return fetch_fn(store, packed, dense=dense)
 
 
 def _mc(mem: InMemory, ctx: QueryCtx, params: SearchParams,
@@ -572,17 +580,20 @@ def run_hops(store: RecordStore, codes, mem: InMemory, ctx: QueryCtx,
     to read their pages, and in strict_in the gated attribute reads too.
     ``distance_fn`` is :func:`_hop_step`'s.
 
-    On the device backend's clean hop (:func:`_graphable`) one hop, the
-    frontier's fetch (:func:`_issue`) and :func:`_hop_step`, is captured at
-    the first call of its shape and replayed ``n_hops`` times
-    (:class:`_HopGraph`): a few launches a hop in place of a few hundred
-    PyTorch calls. Every other call runs :func:`_run_hops_eager`. Both run
-    the same kernels on the same data in the same order, so they agree bit
-    for bit (the eager loop's last fetch, which no hop consumes, is not
-    replayed)."""
+    On a clean hop (:func:`_graphable`) one hop, the frontier's fetch
+    (:func:`_issue`) and :func:`_hop_step`, is captured at the first call
+    of its shape and replayed ``n_hops`` times (:class:`_HopGraph`): a few
+    launches a hop in place of a few hundred PyTorch calls. The fetch is
+    captured where it is a device gather (:func:`local_fetch`); a host
+    fetch (``wants_ctx``) is called between two graphs. Every other call
+    runs :func:`_run_hops_eager`. Both run the same kernels on the same
+    data in the same order, so they agree bit for bit (the eager loop's
+    last fetch, which no hop consumes, is not replayed: a chunk of
+    ``n_hops`` fetches ``n_hops`` times)."""
     if n_hops > 0 and _graphable(store, codes, st, params, fetch_fn,
                                  distance_fn):
-        return _run_graphed(store, codes, mem, ctx, st, n_hops, params)
+        return _run_graphed(store, codes, mem, ctx, st, n_hops, params,
+                            fetch_fn)
     return _run_hops_eager(store, codes, mem, ctx, st, n_hops, params,
                            fetch_fn, distance_fn)
 
@@ -591,8 +602,8 @@ def _run_hops_eager(store: RecordStore, codes, mem: InMemory, ctx: QueryCtx,
                     st: HopState, n_hops: int, params: SearchParams,
                     fetch_fn=local_fetch, distance_fn=None) -> HopState:
     """:func:`run_hops` one PyTorch call at a time: the path of every call
-    that is not the device backend's clean hop, and the reference its CUDA
-    graphs are held to."""
+    that is not a clean hop, and the reference the CUDA graphs are held
+    to."""
     mc = _mc(mem, ctx, params, distance_fn)
     rec = _issue(store, st, params, fetch_fn)
     for _ in range(n_hops):
@@ -605,10 +616,15 @@ def _run_hops_eager(store: RecordStore, codes, mem: InMemory, ctx: QueryCtx,
 def _graphable(store: RecordStore, codes, st: HopState,
                params: SearchParams, fetch_fn, distance_fn) -> bool:
     """Whether :func:`run_hops` replays a captured hop: on CUDA tensors of
-    a store that keeps hop graphs, with :func:`local_fetch` (no host copy
-    inside a hop), the default distance and no fault plan."""
+    a store that keeps hop graphs, with the default distance and no fault
+    plan, and with :func:`local_fetch`, or with a host fetch (``wants_ctx``)
+    outside strict_in, whose attribute probe is a second host read inside
+    the hop step."""
+    host_fetch = getattr(fetch_fn, "wants_ctx", False)
     return (store.hop_graphs is not None and codes.is_cuda
-            and st.visited.is_cuda and fetch_fn is local_fetch
+            and st.visited.is_cuda
+            and (fetch_fn is local_fetch
+                 or (host_fetch and params.mode != "strict_in"))
             and default_distance(distance_fn) and params.fault_plan is None)
 
 
@@ -639,6 +655,13 @@ def _loaded(ctx: QueryCtx, st: HopState, mc) -> tuple:
     return (ctx.queries, ctx.tables, *ctx.qf, ctx.merged_tbl, *st) + extra
 
 
+def _record_fields(store: RecordStore) -> list:
+    """``(name, tensor)`` of each record field a fetch returns."""
+    return [(f, getattr(store, f)) for f in
+            ("vectors", "neighbors", "dense_neighbors", "rec_labels",
+             "rec_values", "cand_first") if getattr(store, f) is not None]
+
+
 def _reads(store: RecordStore, codes, mc) -> tuple:
     """The tensors a hop graph reads in place: the store's, the codes and
     the fused kernel's blooms and bucket words."""
@@ -651,13 +674,18 @@ class _HopGraph:
     """One hop of one shape over static buffers, which :meth:`load` fills
     from a chunk's own tensors: :meth:`step`, captured (:meth:`capture`)
     as CUDA graphs with a hole for each call of a hand-written kernel
-    entry, so ``k`` replays (:meth:`replay`) advance ``k`` hops.
+    entry and for a host fetch, so ``k`` replays (:meth:`replay`) advance
+    ``k`` hops.
 
     A hole keeps the hand-written kernels ordinary launches: each replay
     calls ``kops.hop_fused_gather`` and ``kops.or_scatter_`` between the
     graphs as the eager loop calls them, so ``kops.LAUNCHES`` counts them
     where they launch, a profiler finds them inside their entry's call,
-    and only PyTorch's own kernels are replayed."""
+    and only PyTorch's own kernels are replayed. A host fetch's hole
+    (the disk tier's) follows the graph that packs the frontier's ids:
+    each replay calls the fetch, which copies them to the host, reads, and
+    copies the records into static record buffers, which the next graph
+    reads."""
 
     def __init__(self, store, codes, mem: InMemory, ctx: QueryCtx,
                  st: HopState, mc):
@@ -678,21 +706,22 @@ class _HopGraph:
         for s, t in zip(self.static, _loaded(ctx, st, mc)):
             s.copy_(t)
 
-    def step(self, store, codes, mem, params: SearchParams) -> None:
+    def step(self, store, codes, mem, params: SearchParams,
+             fetch_fn=local_fetch) -> None:
         """One hop on the static buffers."""
-        rec = _issue(store, self.st, params)
+        rec = _issue(store, self.st, params, fetch_fn)
         new = _hop_step(store, codes, mem, params, self.ctx, self.mc,
-                        self.st, rec)
+                        self.st, rec, fetch_fn)
         for s, t in zip(self.st, new):
             if t is not s:
                 s.copy_(t)
 
-    def capture(self, store, codes, mem, params: SearchParams,
-                pool) -> None:
+    def capture(self, store, codes, mem, params: SearchParams, pool,
+                fetch_fn=local_fetch) -> None:
         """Capture :meth:`step` on a side stream after one eager run of it
         (the warm-up: every kernel module is loaded before the capture).
         Both advance the loaded state, which the caller loads again."""
-        self.step(store, codes, mem, params)
+        self.step(store, codes, mem, params, fetch_fn)
         cur = torch.cuda.current_stream(codes.device)
         side = torch.cuda.Stream(codes.device)
         side.wait_stream(cur)
@@ -701,7 +730,7 @@ class _HopGraph:
             self._begin()
             _capture.graph = self
             try:
-                self.step(store, codes, mem, params)
+                self.step(store, codes, mem, params, fetch_fn)
             finally:
                 _capture.graph = None
                 self.parts[-1].capture_end()
@@ -716,15 +745,24 @@ class _HopGraph:
         self.parts.append(graph)
 
     def hole(self, name: str, args: tuple):
-        """End the graph being captured at a call of ``kops.<name>``, note
-        the call, and begin the next graph. Its arguments stay held, so
-        their buffers stay where the graphs read and write them; the fused
-        kernel's results get buffers of their own (allocated outside the
-        pool), which each replay's call is copied into. ``or_scatter_``
-        works in place and returns its ``words``."""
+        """End the graph being captured at a call of ``kops.<name>``, or of
+        a host fetch (``name`` "fetch", ``args`` :func:`_issue`'s fetch
+        callable, store, packed ids and flavour), note the call, and begin
+        the next graph. Its arguments stay held, so their buffers stay
+        where the graphs read and write them; the fused kernel's results
+        and the fetched records get buffers of their own (allocated
+        outside the pool), which each replay's call fills. ``or_scatter_``
+        works in place and returns its ``words``. The fetch's store is
+        held without its graph cache, which holds this graph."""
         self.parts[-1].capture_end()
         if name == "or_scatter_":
             out = args[0]
+        elif name == "fetch":
+            fetch_fn, store, packed, dense = args
+            args = (fetch_fn, store._replace(hop_graphs=None), packed, dense)
+            out = {f: torch.empty((packed.shape[1],) + t.shape[1:],
+                                  dtype=t.dtype, device=packed.device)
+                   for f, t in _record_fields(store)}
         else:
             ids = args[4]
             out = (torch.empty(ids.shape, dtype=torch.float32,
@@ -736,17 +774,23 @@ class _HopGraph:
         return out
 
     def replay(self) -> None:
-        """One captured hop: the graphs in turn, each hole's entry called
+        """One captured hop: the graphs in turn, each hole's call made
         between them."""
         for part in self.parts:
-            if isinstance(part, tuple):
-                name, args, out = part
-                got = getattr(kops, name)(*args)
-                if got is not out:
-                    for o, g in zip(out, got):
-                        o.copy_(g)
-            else:
+            if not isinstance(part, tuple):
                 part.replay()
+                continue
+            name, args, out = part
+            if name == "fetch":
+                fetch_fn, store, packed, dense = args
+                got = fetch_fn(store, packed, dense=dense, out=out)
+                pairs = [(out[f], got[f]) for f in out]
+            else:
+                got = getattr(kops, name)(*args)
+                pairs = [] if got is out else zip(out, got)
+            for o, g in pairs:
+                if g is not o:
+                    o.copy_(g)
 
     def unload(self, visited: torch.Tensor) -> HopState:
         """Fresh tensors of the static state; ``visited``, the chunk's own,
@@ -757,15 +801,16 @@ class _HopGraph:
 
 
 def _run_graphed(store: RecordStore, codes, mem: InMemory, ctx: QueryCtx,
-                 st: HopState, n_hops: int, params: SearchParams) -> HopState:
+                 st: HopState, n_hops: int, params: SearchParams,
+                 fetch_fn=local_fetch) -> HopState:
     """:func:`run_hops` by replay: the store's :class:`_HopGraph` of this
     shape, captured at its first use, replayed ``n_hops`` times. Graphs
     are keyed on everything that fixes a shape or a branch of the body:
     the mode, pool length, beam width, ``max_hops``, ``l_valid``, whether
-    the fused kernel's inputs are set, and the shape and dtype of every
-    tensor loaded (the width B among them); one is captured again when a
-    tensor it reads in place is another. The bucket codes are put in
-    int32 once for each in-memory tier.
+    the fused kernel's inputs are set, the fetch callable, and the shape
+    and dtype of every tensor loaded (the width B among them); one is
+    captured again when a tensor it reads in place is another. The bucket
+    codes are put in int32 once for each in-memory tier.
 
     The graphs of a store share one memory pool. That is safe because the
     pool holds only a hop's scratch: what one graph leaves there for the
@@ -789,14 +834,14 @@ def _run_graphed(store: RecordStore, codes, mem: InMemory, ctx: QueryCtx,
         mc = _mc(mem, ctx, params, buckets=cache.buckets[1])
         key = (params.mode, params.l_search, params.beam_width,
                params.max_hops, params.l_valid or params.l_search,
-               mc is not None,
+               mc is not None, fetch_fn,
                tuple((tuple(t.shape), t.dtype) for t in _loaded(ctx, st, mc)))
         g = cache.graphs.get(key)
         if g is None or any(a is not b for a, b in
                             zip(g.reads, _reads(store, codes, mc))):
             g = _HopGraph(store, codes, mem, ctx, st, mc)
             g.load(ctx, st, mc)
-            g.capture(store, codes, mem, params, cache.pool)
+            g.capture(store, codes, mem, params, cache.pool, fetch_fn)
             cache.graphs[key] = g
         g.load(ctx, st, mc)
         for _ in range(n_hops):

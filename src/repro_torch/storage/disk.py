@@ -26,9 +26,12 @@ while ``gated_skips / attr_probes`` measures the paper's saved I/O.
 
 ``repro`` bridges the jitted hop loop to this store with an
 ``io_callback``; the port's hop loop runs on the host, so the callable is
-called directly: it copies the ids (and hops/liveness, or need/gate) to
-the host in one transfer, reads, and copies the fields back to the
-search's device through pinned staging buffers (:class:`_Staging`).
+called directly: the hop loop packs the ids and two context rows
+(hops/liveness, or need/gate) into one int32 tensor, which the callable
+copies to the host in one transfer; it reads, and copies the fields back
+to the search's device through pinned staging buffers (:class:`_Staging`),
+into the buffers the caller passes as ``out`` where it passes them (a
+replayed hop's static record buffers, ``core/search.py``).
 
 Fault routing: when a :class:`~repro_torch.core.faults.FaultPlan` is armed,
 frontier reads draw the *same* stateless (record id, hop, attempt)
@@ -50,7 +53,8 @@ import torch
 
 from repro_torch.core import faults as faults_mod
 from repro_torch.core.faults import FaultPlan
-from repro_torch.core.records import RecordStore, candidate_first_mask
+from repro_torch.core.records import (HopGraphs, RecordStore,
+                                      candidate_first_mask)
 from repro_torch.storage import slab as slab_mod
 from repro_torch.storage.cache import PageCache
 from repro_torch.storage.slab import (InjectedReadError, SlabChecksumError,
@@ -97,50 +101,55 @@ class _Staging:
     def __init__(self):
         self._bufs: dict = {}
 
-    def to_device(self, arrays: dict, dev: torch.device) -> dict:
-        if dev.type != "cuda":
-            return {k: torch.from_numpy(a) for k, a in arrays.items()}
-        out = {}
+    def _pinned(self, k: str, a: np.ndarray) -> torch.Tensor:
+        b = self._bufs.get(k)
+        if b is None or tuple(b.shape) != a.shape or \
+                b.numpy().dtype != a.dtype:
+            b = torch.from_numpy(a).pin_memory()
+            self._bufs[k] = b
+        else:
+            b.numpy()[...] = a
+        return b
+
+    def to_device(self, arrays: dict, dev: torch.device,
+                  out: dict | None = None) -> dict:
+        """The arrays as tensors on ``dev``: copied into ``out``'s tensors
+        of the same keys (non-blocking on the card) where it is given,
+        else new tensors."""
+        on_card = dev.type == "cuda"
+        got = {}
         for k, a in arrays.items():
-            b = self._bufs.get(k)
-            if b is None or tuple(b.shape) != a.shape or \
-                    b.numpy().dtype != a.dtype:
-                b = torch.from_numpy(a).pin_memory()
-                self._bufs[k] = b
+            src = self._pinned(k, a) if on_card else torch.from_numpy(a)
+            if out is not None:
+                got[k] = out[k].copy_(src, non_blocking=on_card)
             else:
-                b.numpy()[...] = a
-            out[k] = b.to(dev, non_blocking=True)
-        return out
+                got[k] = src.to(dev, non_blocking=True) if on_card else src
+        return got
 
 
 class _DiskFetch:
     """The hop loop's fetch callable, marked ``wants_ctx`` so the hop loop
-    passes hops/liveness/gate context (``core/search.py``): a frontier
-    fetch gets ``hops``/``live``/``dense``, a strict_in attribute probe
-    ``need``/``gate`` with ``attrs_only``."""
+    passes each id's context (``core/search.py``): ``packed`` is one
+    (3, n) int32 tensor, the ids over two context rows, each row's hop
+    counter and liveness for a frontier fetch (with ``dense``), ``need``
+    and ``gate`` for a strict_in attribute probe (``attrs_only``). The
+    fields come back in new tensors, or in ``out``'s where it is given."""
     wants_ctx = True
 
     def __init__(self, ds: "DiskRecordStore"):
         self._ds = ds
         self._stage = _Staging()
 
-    def __call__(self, store: RecordStore, ids: torch.Tensor, *, hops=None,
-                 live=None, dense: bool = True, need=None, gate=None,
-                 attrs_only: bool = False) -> dict:
+    def __call__(self, store: RecordStore, packed: torch.Tensor, *,
+                 dense: bool = True, attrs_only: bool = False,
+                 out: dict | None = None) -> dict:
         ds = self._ds
+        ids, ctx1, ctx2 = trace.to_host(packed).numpy()
         if attrs_only:
-            # one transfer: ids, need and gate side by side
-            host = trace.to_host(torch.stack([ids.int(), need.int(),
-                                              gate.int()])).numpy()
-            out = ds.read_attrs(host[0], host[1].astype(bool),
-                                host[2].astype(bool))
+            got = ds.read_attrs(ids, ctx1.astype(bool), ctx2.astype(bool))
         else:
-            # one transfer: ids, each row's hop counter and liveness
-            host = trace.to_host(torch.stack([ids.int(), hops.int(),
-                                              live.int()])).numpy()
-            out = ds.fetch(host[0], host[1], host[2].astype(bool),
-                           dense=bool(dense))
-        return self._stage.to_device(out, ids.device)
+            got = ds.fetch(ids, ctx1, ctx2.astype(bool), dense=bool(dense))
+        return self._stage.to_device(got, packed.device, out)
 
 
 class DiskRecordStore:
@@ -216,7 +225,8 @@ class DiskRecordStore:
         """A 1-row :class:`RecordStore` on ``device`` carrying only shapes
         and the modeled page counts — the device tier holds no record data;
         every record byte the search consumes flows through the fetch
-        callable."""
+        callable — and an empty cache of the hop loop's CUDA graphs, whose
+        replays call the fetch callable between them."""
         lo = self.layout
 
         def full(shape, value, dtype):
@@ -229,7 +239,8 @@ class DiskRecordStore:
             rec_labels=full((1, lo.max_labels), -1, torch.int32),
             rec_values=full((1, lo.n_fields), 0.0, torch.float32),
             pages_std=self.pages_std, pages_dense=self.pages_dense,
-            cand_first=full((1, lo.r + lo.r_dense), False, torch.bool))
+            cand_first=full((1, lo.r + lo.r_dense), False, torch.bool),
+            hop_graphs=HopGraphs())
 
     @property
     def file_bytes(self) -> int:

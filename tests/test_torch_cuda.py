@@ -431,9 +431,10 @@ def test_disk_backend_equals_device_backend_on_card(cuda, tmp_path):
     config): ``Index.build(store="disk")``'s answers equal those of the same
     index on the device backend under every policy (the pre route and the
     scan rung included), clean and under a fault plan, and its hop loop
-    launches the same kernels through the same entries. Each device run is
-    made once before it is counted, so that its hop graphs are captured
-    (the capture's warm-up hop launches kernels of its own)."""
+    launches the same kernels through the same entries. Each run, on
+    either backend, is made once before it is counted, so that its hop
+    graphs are captured (a capture's warm-up hop launches kernels of its
+    own)."""
     import copy
     import dataclasses
     from repro_torch import api as tapi
@@ -470,6 +471,7 @@ def test_disk_backend_equals_device_backend_on_card(cuda, tmp_path):
             want, sw = getattr(idx, run)(reqs, with_stats=True,
                                          with_metadata=False, scfgs=scfgs)
             device_launches = tops.snapshot()
+            getattr(dsk, run)(reqs, with_metadata=False, scfgs=scfgs)
             tops.reset_launches()
             got, sg = getattr(dsk, run)(reqs, with_stats=True,
                                         with_metadata=False, scfgs=scfgs)
@@ -684,6 +686,78 @@ def test_hop_graph_equals_eager_loop_on_card(card_and_cpu_engines, mode,
                          tsearch.take_rows(got, rows))
     assert caps == 1
     _states_equal(got, want, f"{mode} width 8 after compaction")
+
+
+@pytest.mark.parametrize("mode", ["post", "spec_in"])
+def test_disk_hop_graph_equals_eager_loop_on_card(card_and_cpu_engines, mode,
+                                                 monkeypatch, tmp_path):
+    """``run_hops`` over the disk tier's stand-in store on the card replays
+    a captured hop with the disk fetch called between its graphs. Over a
+    chunk at width 64 (the capture) and a second chunk there (replays
+    only), every ``HopState`` field equals ``_run_hops_eager``'s with the
+    same fetch callable, and the device backend's eager loop's, bit for
+    bit. The capture's chunk reads the slabs once for its warm-up hop and
+    once a replayed hop; the replayed chunk reads them once a hop (the
+    eager loop once more), launches what the eager chunk launches, each
+    hand-written kernel through a call of its ``ops`` entry, and the tally
+    counts its every hop step as graphed."""
+    from repro_torch.core import search as tsearch
+    from repro_torch.storage import DiskRecordStore
+    from repro_torch.utils import trace
+    gpu, _, ds, qf, _ = card_and_cpu_engines
+    disk = DiskRecordStore.from_record_store(str(tmp_path / "slabs"),
+                                             gpu.store, n=gpu.n)
+    stub, fetch = disk.stub_store(gpu.device), disk.fetch_callable
+    qf64, q64 = _tiled(qf, ds.queries, 64)
+    p = tsearch.SearchParams(l_search=24, k=5, max_hops=80, beam_width=2,
+                             mode=mode, l_valid=16)
+    ctx, st = tsearch.init_search(stub, gpu.codes, gpu.codebook, gpu.mem,
+                                  qf64, q64, gpu.medoid, p)
+    fetches = []
+    read = disk.fetch
+    monkeypatch.setattr(disk, "fetch", lambda *a, **kw: (
+        fetches.append(1) or read(*a, **kw)))
+
+    def chunk(run, s, store=stub, fetch_fn=fetch):
+        tops.reset_launches()
+        del fetches[:]
+        with trace.batch() as t:
+            out = run(store, gpu.codes, gpu.mem, ctx, s, 6, p, fetch_fn)
+        torch.cuda.synchronize()
+        return out, tops.snapshot(), t, len(fetches)
+
+    def clone(s):
+        return tsearch.HopState(*(t.clone() for t in s))
+
+    local, _, _, _ = chunk(tsearch._run_hops_eager, clone(st), gpu.store,
+                           tsearch.local_fetch)
+    want, _, _, reads = chunk(tsearch._run_hops_eager, clone(st))
+    assert reads == 7
+    got, _, t, reads = chunk(tsearch.run_hops, clone(st))
+    assert (t["graph_captures"], t["hop_steps_graphed"], reads) == (1, 6, 7)
+    _states_equal(got, want, f"disk {mode}, first chunk")
+    _states_equal(got, local, f"disk {mode} vs device, first chunk")
+    assert bool(want.active.any())
+    local, _, _, _ = chunk(tsearch._run_hops_eager, local, gpu.store,
+                           tsearch.local_fetch)
+    want, eager_launches, _, reads = chunk(tsearch._run_hops_eager, want)
+    assert reads == 7
+    entry_calls = {"hop_fused_gather": 0, "or_scatter_": 0}
+    for name in entry_calls:
+        def counted(*a, _fn=getattr(tops, name), _name=name):
+            entry_calls[_name] += 1
+            return _fn(*a)
+        monkeypatch.setattr(tops, name, counted)
+    got, graph_launches, t, reads = chunk(tsearch.run_hops, got)
+    assert (t["graph_captures"], t["hop_steps_graphed"], reads) == (0, 6, 6)
+    assert graph_launches == eager_launches
+    assert entry_calls == {"hop_fused_gather": graph_launches["hop_fused"],
+                           "or_scatter_": graph_launches["or_scatter"]}
+    assert eager_launches["or_scatter"] == 6
+    assert eager_launches["hop_fused"] == (6 if mode == "spec_in" else 0)
+    _states_equal(got, want, f"disk {mode}, replayed chunk")
+    _states_equal(got, local, f"disk {mode} vs device, replayed chunk")
+    disk.close()
 
 
 @pytest.mark.parametrize("mode", ["post", "spec_in", "strict_in"])

@@ -1,10 +1,11 @@
 """The hop loop's CUDA-graph path (``search.run_hops`` → ``_run_graphed``)
 on the CPU: which calls take it, that the body it captures, stepped eagerly
-on its static buffers, equals the eager loop bit for bit, that a capture
-leaves the hand-written kernel entries out of its graphs and a replay calls
-them between the graphs, and that the tally's graph counters stay zero
-where no graph runs. The capture and replay themselves run only on the card
-(``tests/test_torch_cuda.py``)."""
+on its static buffers, equals the eager loop bit for bit (on the device
+backend and on the disk tier, whose fetch it makes once a hop), that a
+capture leaves the hand-written kernel entries and the disk tier's host
+fetch out of its graphs and a replay calls them between the graphs, and
+that the tally's graph counters stay zero where no graph runs. The capture
+and replay themselves run only on the card (``tests/test_torch_cuda.py``)."""
 import threading
 import types
 
@@ -19,6 +20,7 @@ from repro_torch.core.faults import FaultPlan
 from repro_torch.core.selectors import stack_filters
 from repro_torch.data.synth import make_filtered_dataset, make_selectors
 from repro_torch.kernels import ops as tops
+from repro_torch.storage import DiskRecordStore
 from repro_torch.utils import trace
 
 
@@ -37,7 +39,15 @@ def small():
     return ds, e, qf
 
 
-def _params(mode, **kw):
+@pytest.fixture(scope="module")
+def disk(small, tmp_path_factory):
+    """The small engine's records spilled to slab files: a disk tier."""
+    _, e, _ = small
+    return DiskRecordStore.from_record_store(
+        str(tmp_path_factory.mktemp("slabs")), e.store, n=e.n)
+
+
+def _params(mode="spec_in", **kw):
     return tsearch.SearchParams(l_search=24, k=5, max_hops=80, beam_width=2,
                                 mode=mode, l_valid=16, **kw)
 
@@ -46,9 +56,10 @@ def _clone(st):
     return tsearch.HopState(*(t.clone() for t in st))
 
 
-def _ctx_fetch(store, ids, **kw):
-    """``local_fetch`` behind the disk tier's ``wants_ctx`` contract."""
-    return tsearch.local_fetch(store, ids)
+def _ctx_fetch(store, packed, **kw):
+    """``local_fetch`` behind the disk tier's ``wants_ctx`` contract (the
+    ids are the first row of ``packed``)."""
+    return tsearch.local_fetch(store, packed[0])
 
 
 _ctx_fetch.wants_ctx = True
@@ -61,21 +72,27 @@ def _custom_distance(codes, table):
 CASES = {
     "clean": ({}, {}),
     "wants_ctx_fetch": ({"fetch_fn": _ctx_fetch}, {}),
+    "wants_ctx_fetch_post": ({"fetch_fn": _ctx_fetch}, {"mode": "post"}),
+    "wants_ctx_fetch_strict_in": ({"fetch_fn": _ctx_fetch},
+                                  {"mode": "strict_in"}),
     "custom_distance": ({"distance_fn": _custom_distance}, {}),
     "fault_plan": ({}, {"fault_plan": FaultPlan(read_fail_rate=0.1,
                                                 seed=3)}),
     "store_without_graphs": ({}, {}),
 }
+GRAPHABLE = {"clean", "wants_ctx_fetch", "wants_ctx_fetch_post"}
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_graph_path_needs_the_clean_device_hop(case):
     """``_graphable`` holds for CUDA tensors of a store that keeps hop
-    graphs, with ``local_fetch``, the default distance and no fault plan,
-    and for nothing else: each case but the clean one fails it on CUDA
-    tensors, and CPU tensors fail it in every case."""
+    graphs, with the default distance and no fault plan, and with
+    ``local_fetch`` or, outside strict_in, a ``wants_ctx`` (host) fetch,
+    and for nothing else: the other cases fail it on CUDA tensors (a host
+    fetch in strict_in among them), and CPU tensors fail it in every
+    case."""
     kw, pkw = CASES[case]
-    p = _params("spec_in", **pkw)
+    p = _params(**pkw)
     fetch = kw.get("fetch_fn", tsearch.local_fetch)
     dist = kw.get("distance_fn")
     store = types.SimpleNamespace(
@@ -84,7 +101,7 @@ def test_graph_path_needs_the_clean_device_hop(case):
     on_card = tsearch._graphable(store, card,
                                  types.SimpleNamespace(visited=card), p,
                                  fetch, dist)
-    assert on_card == (case == "clean")
+    assert on_card == (case in GRAPHABLE)
     cpu = torch.zeros(1)
     assert not tsearch._graphable(store, cpu,
                                   types.SimpleNamespace(visited=cpu), p,
@@ -106,7 +123,7 @@ def test_cpu_hop_loop_takes_the_eager_path(small, monkeypatch, case):
         raise AssertionError("the graph path ran on the CPU")
 
     monkeypatch.setattr(tsearch, "_run_graphed", refuse)
-    p = _params("spec_in", **pkw)
+    p = _params(**pkw)
     with trace.batch() as t:
         res = tsearch.filtered_search_pipelined(
             store, e.codes, e.codebook, e.mem, qf, ds.queries, e.medoid, p,
@@ -151,6 +168,58 @@ def test_graph_body_equals_eager_loop(small, mode, width):
             if a.dtype == torch.float32:
                 a, b = a.view(torch.int32), b.view(torch.int32)
             assert torch.equal(a, b), f"{mode} width {width}: {f}"
+    assert int(want.counters[:, 3].sum()) > 0
+
+
+def _counting_fetches(ds, monkeypatch) -> list:
+    """Log each ``ds.fetch`` call (the disk tier's frontier reads)."""
+    calls = []
+    fetch = ds.fetch
+
+    def counted(*args, **kwargs):
+        calls.append(args[0].size)
+        return fetch(*args, **kwargs)
+
+    monkeypatch.setattr(ds, "fetch", counted)
+    return calls
+
+
+@pytest.mark.parametrize("mode", ["post", "spec_in"])
+def test_disk_graph_body_equals_eager_loop(small, disk, monkeypatch, mode):
+    """The body a hop graph captures over the disk tier's stand-in store
+    (``_HopGraph.step`` with the disk tier's fetch callable), stepped
+    eagerly on its static buffers over two loads, equals
+    ``_run_hops_eager`` with the same callable, and the device backend's
+    eager loop, on every ``HopState`` field bit for bit; it reads the
+    frontier once a hop, ``n_hops`` times a chunk, where the eager loop
+    reads it once more."""
+    ds, e, qf = small
+    stub, fetch = disk.stub_store(), disk.fetch_callable
+    calls = _counting_fetches(disk, monkeypatch)
+    p = _params(mode)
+    ctx, st = tsearch.init_search(stub, e.codes, e.codebook, e.mem, qf,
+                                  ds.queries, e.medoid, p)
+    mc = tsearch._mc(e.mem, ctx, p, buckets=e.mem.bucket_codes.int())
+    want, got, local = _clone(st), _clone(st), _clone(st)
+    g = tsearch._HopGraph(stub, e.codes, e.mem, ctx, got, mc)
+    for hops in (3, 4):
+        del calls[:]
+        want = tsearch._run_hops_eager(stub, e.codes, e.mem, ctx, want,
+                                       hops, p, fetch)
+        assert len(calls) == hops + 1
+        local = tsearch._run_hops_eager(e.store, e.codes, e.mem, ctx, local,
+                                        hops, p)
+        del calls[:]
+        g.load(ctx, got, mc)
+        for _ in range(hops):
+            g.step(stub, e.codes, e.mem, p, fetch)
+        assert calls == [ds.queries.shape[0] * p.beam_width] * hops
+        got = g.unload(got.visited)
+        for f, a, b, c in zip(tsearch.HopState._fields, got, want, local):
+            if a.dtype == torch.float32:
+                a, b, c = (t.view(torch.int32) for t in (a, b, c))
+            assert torch.equal(a, b), f"{mode}: {f}"
+            assert torch.equal(a, c), f"{mode} against the device: {f}"
     assert int(want.counters[:, 3].sum()) > 0
 
 
@@ -252,3 +321,45 @@ def test_hole_splits_the_capture_and_replay_calls_the_entries(monkeypatch):
     assert torch.equal(key, torch.full(ids.shape, 2.5))
     assert bool(ok.all())
     assert words.tolist() == [[1 | 1 << 3], [1 << 5 | 1 << 1 | 1 << 2]]
+
+
+def test_fetch_hole_fills_the_static_records_at_each_replay(small, disk,
+                                                            monkeypatch):
+    """A host fetch's hole ends the graph being captured, holds the store
+    without its graph cache, and gives the records static buffers shaped
+    as the store's fields; each replay runs the graph that packs the ids,
+    then calls the fetch once on whatever ids the packed buffer then holds,
+    filling those buffers with the disk tier's records (equal to a direct
+    call), then runs the next graph."""
+    _, e, _ = small
+    stub, fetch = disk.stub_store(), disk.fetch_callable
+    log = []
+    g = tsearch._HopGraph.__new__(tsearch._HopGraph)
+    g.parts = [_Graph(log, 0)]
+    monkeypatch.setattr(tsearch._HopGraph, "_begin", lambda self: (
+        self.parts.append(_Graph(log, len(self.parts)))))
+    calls = _counting_fetches(disk, monkeypatch)
+    packed = torch.tensor([[4, 9, 0, 17], [2, 2, 3, 3], [1, 1, 0, 1]],
+                          dtype=torch.int32)
+    out = g.hole("fetch", (fetch, stub, packed, True))
+    assert log == [("end", 0)] and len(g.parts) == 3
+    assert g.parts[1][1][1].hop_graphs is None
+    assert stub.hop_graphs is not None
+    fields = dict(tsearch._record_fields(stub))
+    assert set(out) == set(fields)
+    for f, t in out.items():
+        assert (t.shape[1:], t.dtype) == (fields[f].shape[1:],
+                                          fields[f].dtype)
+        assert t.shape[0] == 4
+    for ids in ([4, 9, 0, 17], [30, 31, 5, 6]):
+        packed[0] = torch.tensor(ids)
+        del log[:], calls[:]
+        g.replay()
+        assert log == [("replay", 0), ("replay", 2)]
+        assert calls == [4]
+        want = fetch(stub, packed, dense=True)
+        for f in out:
+            assert torch.equal(out[f], want[f]), f
+        assert torch.equal(out["vectors"][[0, 1, 3]],
+                           e.store.vectors[[ids[0], ids[1], ids[3]]])
+        assert bool((out["neighbors"][2] == -1).all())   # a dead row
